@@ -18,7 +18,23 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             reset just before it and read just after); heatmaps of the kernel path
             (bf16) against `SegFormerNet(kernels=False)` in f32; peaks finite and in
             the frame; warm frames/s;
-6. hygiene  neither JAX nor the JAX package was imported.
+6. k5       K5a/K5b (fused conv + bias + ReLU (+ residual), `ops/fused_conv.py`) against
+            their plain versions (f32 on the same bf16 inputs) at every distinct
+            (Ci, Co, H, W, residual) one HRNet forward launches at chunk 8 and 1280x704
+            (recorded from one forward of each HRNet on the meta device), plus two
+            ragged shapes; kernel, plain and stock (channels_last cuDNN + eager
+            epilogue) times, launches per forward, the bound;
+7. hrnet    WASB and TableHRNet at 1280x704, chunk 8, seeded random weights with
+            perturbed BatchNorm statistics: heatmaps of the kernel path (bf16) against
+            the plain path (f32), and 40 K5a / 14 K5b launches per forward;
+8. detectors the four detectors of the main path through `hub.ball_detection` and
+            `hub.table_detection` at chunk 8 on the same synthetic 1920x1080 frames (b2
+            ball and WASB on the triplets, b2 table and HRNet table on the centre
+            frames), with all four kernels' launch counts reset just before and read
+            just after; frames/s of each and of the four together; each detector's
+            heatmaps on one chunk of 8 against a `kernels=False` copy in f32 with the
+            same weights; then both `filter_trajectory` calls;
+9. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -46,9 +62,17 @@ B2_STAGES = [  # (H, W, C, heads, Nkv, depth) of segformerpp_b2 at 1600x896
     (28, 50, 512, 8, 1400, 3),
 ]
 K2_RAGGED = (34, 60, 256)  # segformerpp_b0 stage 4 at 1920x1088: H, W not tile multiples
-CHUNK = 4  # the slice's chunk: the batch the kernels see on the main path
+CHUNK = 4  # the first slice's chunk: the batch K1/K2 see in the k1, k2 and slice phases
 N_TRIPLETS = 8
 DEVICE = "cuda"
+HR_CHUNK = 8  # the four-detector phase's chunk: the batch K5 sees on the main path
+HR_H, HR_W = 704, 1280  # WASB / HRNet model input
+N_FRAMES = 16  # centre frames of the four-detector phase (2 chunks of 8)
+
+# K5 shapes outside the HRNet: (ks, Ci, Co, H, W, residual, relu), H and W not tile multiples
+K5_RAGGED = [(3, 16, 16, 701, 1277, True, True), (1, 32, 16, 349, 637, False, False)]
+K5A_PER_FORWARD, K5B_PER_FORWARD, STRIDE2_PER_FORWARD = 40, 14, 18
+B2_PER_FORWARD = 16  # MiTBlocks of segformerpp_b2: one K1 and one K2 launch each
 
 # H100 SXM peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -62,9 +86,18 @@ SFU_PER_S = 16 * 132 * 1.98e9
 # an ulp (0.0156 at |x| in [4, 8)); bf16 rounding of LN(x), q or the hidden tensor and
 # of the attention weights adds a few ulps of the half-block's update.
 ATOL, RTOL = 6e-2, 2e-2
+# K5: its inputs are the same bf16 tensors on both sides and only its output is
+# rounded to bf16 (half an ulp: at most 2^-8 |plain|, 0.031 at |x| in [8, 16)); the
+# rest is the order of the f32 sums
+K5_ATOL, K5_RTOL = 1e-2, 8e-3
 # heatmaps of the bf16 kernel path vs the f32 plain path, relative to max |plain|:
 # 16 residual blocks each round their output to bf16 (2^-9 relative).
 HEAT_TOL = 5e-2
+# the same for the HRNets: every one of their 72 convs and 9 fuse sums rounds to bf16
+# (2^-9 relative), through 16 residual blocks; the plain path run in bf16 on the CPU
+# (the kernels' roundings) gave 1.2e-2 (WASB) and 2.4e-2 (table) at 176x320, and the
+# maximum over 8 x 704 x 1280 pixels is larger than over 2 x 176 x 320.
+HRNET_HEAT_TOL = 8e-2
 
 
 def log(phase: str, **kv) -> None:
@@ -125,11 +158,11 @@ def synthetic_frames(n_frames: int):
     return np.stack(frames)
 
 
-def compare(torch, got, want):
+def compare(torch, got, want, atol=ATOL, rtol=RTOL):
     err = (got.float() - want.float()).abs()
     max_abs = err.max().item()
     max_rel = (err / want.float().abs().clamp_min(1e-3)).max().item()
-    ok = bool((err <= ATOL + RTOL * want.float().abs()).all().item())
+    ok = bool((err <= atol + rtol * want.float().abs()).all().item())
     return max_abs, max_rel, ok
 
 
@@ -300,17 +333,304 @@ def run_slice(torch, ops, profile=False):
     res = dict(frames_per_s=fps, predict_s=dt, launches=launches, heat_rel_err=heat_err,
                peaks=pos.tolist())
     if profile:
-        res["profile"] = profile_predict(torch, det, triples)
+        res["profile"] = profile_calls(torch, lambda: det.predict(triples),
+                                       "one warm b2 ball predict of 8 triplets")
     return res
 
 
-def profile_predict(torch, det, triples):
-    """Device time by kernel over one warm predict (torch.profiler), and the idle share."""
+def k5_bound(ks, B, H, W, Ci, Co, residual):
+    """(ms, bound_by) for K5: x, w, b and the residual read once, out written once."""
+    npix = B * H * W
+    nbytes = 2 * npix * (Ci + Co * (2 if residual else 1)) + 2 * ks * ks * Ci * Co + 4 * Co
+    flops = 2 * npix * ks * ks * Ci * Co
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def hrnet_conv_shapes(torch):
+    """{(ks, Ci, Co, H, W, residual, relu): [per WASB forward, per table-HRNet forward]}
+    of the stride-1 convs, recorded from one forward of each HRNet at 1280x704 on the
+    meta device (shapes only, no data): the graph K5 runs on the main path."""
+    from upliftingtabletennis_torch.models import hrnet
+    from upliftingtabletennis_torch.models.factory import get_detector
+
+    shapes = collections.defaultdict(lambda: [0, 0])
+    saved = hrnet.conv3x3_bias_act_plain, hrnet.conv1x1_bias_act_plain
+
+    def spy(ks, fn, col):
+        def wrapped(x, w, b=None, residual=None, *, relu):
+            key = (ks, x.shape[-1], w.shape[-1], x.shape[1], x.shape[2], residual is not None,
+                   relu)
+            shapes[key][col] += 1
+            return fn(x, w, b, residual, relu=relu)
+        return wrapped
+
+    try:
+        for col, (name, task, n_in) in enumerate((("wasb", "ball", 3), ("hrnet", "table", 1))):
+            hrnet.conv3x3_bias_act_plain = spy(3, saved[0], col)
+            hrnet.conv1x1_bias_act_plain = spy(1, saved[1], col)
+            model, _ = get_detector(name, task, kernels=False)
+            with torch.no_grad():
+                model.eval().to("meta")(torch.empty(1, HR_H, HR_W, 3 * n_in, device="meta"))
+    finally:
+        hrnet.conv3x3_bias_act_plain, hrnet.conv1x1_bias_act_plain = saved
+    for col in (0, 1):
+        per_ks = {k: sum(n[col] for key, n in shapes.items() if key[0] == k) for k in (3, 1)}
+        if per_ks != {3: K5A_PER_FORWARD, 1: K5B_PER_FORWARD}:
+            raise AssertionError(f"one HRNet forward runs {per_ks} stride-1 convs")
+    return shapes
+
+
+def run_k5(torch, F, gen):
+    from upliftingtabletennis_torch.ops import fused_conv as k5
+
+    shapes = [(*key, *n) for key, n in hrnet_conv_shapes(torch).items()]
+    shapes += [(*r, 0, 0) for r in K5_RAGGED]
+    entries = []
+    for ks, Ci, Co, H, W, has_res, relu, n_wasb, n_table in shapes:
+        B = HR_CHUNK
+
+        def rnd(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device=DEVICE) * std).to(torch.bfloat16)
+
+        x = rnd(B, H, W, Ci)
+        w = rnd(*((3, 3) if ks == 3 else ()), Ci, Co, std=(ks * ks * Ci) ** -0.5)
+        b = rnd(Co, std=0.1)
+        res = rnd(B, H, W, Co) if has_res else None
+        packed = k5.pack(w, b)
+        fn = k5.conv3x3_bias_act if ks == 3 else k5.conv1x1_bias_act
+        plain_fn = k5.conv3x3_bias_act_plain if ks == 3 else k5.conv1x1_bias_act_plain
+
+        def kernel():
+            return fn(x, packed, None, res, relu=relu)
+
+        def plain():
+            return plain_fn(x.float(), w.float(), b.float(),
+                            None if res is None else res.float(), relu=relu)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        max_abs, max_rel, ok = compare(torch, got, want, K5_ATOL, K5_RTOL)
+        del want, got
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
+        w_oihw = (w if ks == 3 else w[None, None]).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        res_nchw = None if res is None else res.permute(0, 3, 1, 2)
+
+        def stock():
+            y = F.conv2d(x_nchw, w_oihw, padding=ks // 2) + b.view(1, -1, 1, 1)
+            if res_nchw is not None:
+                y = y + res_nchw
+            return torch.relu(y) if relu else y
+
+        ms, plain_ms, stock_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=3, warmup=1), \
+            time_ms(torch, stock)
+        bound_ms, bound_by = k5_bound(ks, B, H, W, Ci, Co, has_res)
+        name = "conv3x3_bias_act" if ks == 3 else "conv1x1_bias_act"
+        e = dict(kernel=name, shape=dict(B=B, H=H, W=W, Ci=Ci, Co=Co, residual=has_res,
+                                         relu=relu),
+                 per_forward={"wasb": n_wasb, "hrnet": n_table}, ms=ms, plain_ms=plain_ms,
+                 library_ms=stock_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 max_abs_err=max_abs, max_rel_err=max_rel)
+        log("k5", kernel=name, Ci=Ci, Co=Co, H=H, W=W, res=has_res, per_fwd=f"{n_wasb}/{n_table}",
+            max_abs_err=f"{max_abs:.4g}", ms=f"{ms:.4f}", stock_ms=f"{stock_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at "
+                                 f"{(Ci, Co, H, W, has_res)}: max_abs_err={max_abs}")
+        entries.append(e)
+        del x, res, packed
+    torch.cuda.empty_cache()
+    return entries
+
+
+def perturb_batch_norms(torch, model, seed):
+    """Non-trivial running statistics (init_weights leaves mean 0, var 1)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.add_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.mul_(0.5 + torch.rand(m.running_var.shape, generator=g))
+
+
+def run_hrnet(torch, frames):
+    import numpy as np
+
+    from upliftingtabletennis_torch.data.image_transforms import normalize_image
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.ops import fused_conv as k5
+    from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
+    from upliftingtabletennis_torch.pipeline.interface import init_weights
+
+    res = {}
+    for name, task, n_in in (("wasb", "ball", 3), ("hrnet", "table", 1)):
+        imgs = np.stack([np.concatenate(frames[t:t + n_in], -1) for t in range(HR_CHUNK)])
+        images = torch.from_numpy(imgs).to(DEVICE)
+        x = normalize_image(resize_bilinear_down(images, HR_H, HR_W)).to(torch.bfloat16)
+        model, _ = get_detector(name, task)
+        init_weights(model)
+        perturb_batch_norms(torch, model, seed=1)
+        strided = sum(isinstance(m, torch.nn.Conv2d) and m.stride[0] == 2
+                      for m in model.modules())
+        if strided != STRIDE2_PER_FORWARD:
+            raise AssertionError(f"{name}: {strided} stride-2 convs, "
+                                 f"expected {STRIDE2_PER_FORWARD}")
+        ref, _ = get_detector(name, task, kernels=False)
+        ref.load_state_dict(model.state_dict())
+        model.eval().to(DEVICE)  # both fold their BatchNorms at their first forward
+        ref.eval().to(DEVICE)
+
+        def heat(out):
+            return (out[0] if isinstance(out, tuple) else out).float()
+
+        with torch.no_grad():
+            heat(model(x))  # warm-up
+            torch.cuda.synchronize()
+            k5.conv3x3_bias_act.launches = k5.conv1x1_bias_act.launches = 0
+            t = time.time()
+            got = heat(model(x))
+            torch.cuda.synchronize()
+            fwd_ms = 1e3 * (time.time() - t)
+            launches = {"conv3x3_bias_act": k5.conv3x3_bias_act.launches,
+                        "conv1x1_bias_act": k5.conv1x1_bias_act.launches}
+            want = heat(ref(x.float()))
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        log("hrnet", model=name, forward_ms=f"{fwd_ms:.2f}", launches=launches,
+            heat_rel_err=f"{err:.4g}", heat_max_abs=f"{want.abs().max().item():.4g}")
+        if launches != {"conv3x3_bias_act": K5A_PER_FORWARD, "conv1x1_bias_act": K5B_PER_FORWARD}:
+            raise AssertionError(f"{name}: K5 launches per forward {launches}")
+        if not err <= HRNET_HEAT_TOL:
+            raise AssertionError(f"{name}: heatmaps of the kernel path differ from the f32 "
+                                 f"plain path: {err} > {HRNET_HEAT_TOL}")
+        res[name] = dict(forward_ms=fwd_ms, launches=launches, heat_rel_err=err)
+        del model, ref, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def plain_heat_err(torch, det, images):
+    """max |heatmaps of the detector (bf16, kernels) - those of a `kernels=False` copy
+    in f32 with the same weights, on the same bf16-rounded input| / max |copy|."""
+    from upliftingtabletennis_torch.data.image_transforms import normalize_image
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
+
+    ref, _ = get_detector(det.model_name, det.task, kernels=False)
+    ref.load_state_dict(det.model.state_dict())
+    ref.eval().to(DEVICE, torch.float32)
+    MW, MH = det.resolution
+    with torch.no_grad():
+        heat = det.heatmaps(images)
+        x = normalize_image(resize_bilinear_down(images, MH, MW)).to(det.dtype).float()
+        out = ref(x)
+        heat_ref = (out[0] if isinstance(out, tuple) else out).permute(0, 3, 1, 2).float()
+    err = ((heat - heat_ref).abs().max() / heat_ref.abs().max()).item()
+    del ref, heat, heat_ref, out, x
+    torch.cuda.empty_cache()
+    return err
+
+
+def run_detectors(torch, ops, frames, profile=False):
+    import numpy as np
+
+    from upliftingtabletennis_torch.hub import ball_detection, table_detection
+    from upliftingtabletennis_torch.pipeline.interface import (HEIGHT, WIDTH, BallDetector,
+                                                               TableDetector)
+
+    triples = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(N_FRAMES)]
+    centres = [frames[t + 1] for t in range(N_FRAMES)]
+    dets = {"segformerpp_b2_ball": (ball_detection("segformerpp_b2", device=DEVICE,
+                                                   chunk=HR_CHUNK), triples),
+            "wasb_ball": (ball_detection("wasb", device=DEVICE, chunk=HR_CHUNK), triples),
+            "segformerpp_b2_table": (table_detection("segformerpp_b2", device=DEVICE,
+                                                     chunk=HR_CHUNK), centres),
+            "hrnet_table": (table_detection("hrnet", device=DEVICE, chunk=HR_CHUNK), centres)}
+    for det, items in dets.values():  # warm-up: cuDNN algorithm choice, allocator
+        det.predict(items)
+    torch.cuda.synchronize()
+
+    for k in ops.ALL:
+        getattr(ops, k).launches = 0
+    out, secs = {}, {}
+    for name, (det, items) in dets.items():  # the main path
+        t = time.time()
+        out[name] = det.predict(items)[0]
+        secs[name] = time.time() - t
+    launches = {k: getattr(ops, k).launches for k in ops.ALL}
+
+    n_chunks = N_FRAMES // HR_CHUNK
+    expected = {"fused_attention_block": 2 * n_chunks * B2_PER_FORWARD,
+                "fused_ln_ffn": 2 * n_chunks * B2_PER_FORWARD,
+                "conv3x3_bias_act": 2 * n_chunks * K5A_PER_FORWARD,
+                "conv1x1_bias_act": 2 * n_chunks * K5B_PER_FORWARD}
+    for name, p in out.items():
+        shape = (N_FRAMES, 3) if name.endswith("ball") else (N_FRAMES, 13, 3)
+        if p.shape != shape or not np.isfinite(p).all():
+            raise AssertionError(f"{name}: bad peaks, shape {p.shape}")
+        # the 3x3 fit may place a peak up to 2 heatmap pixels beyond its argmax; the
+        # SegFormer heatmap is at 1/4 of the model input, the HRNet's at full size
+        MW, MH = dets[name][0].resolution
+        stride = 4 if name.startswith("segformer") else 1
+        mx, my = 2 * WIDTH * stride / MW, 2 * HEIGHT * stride / MH
+        x, y = p[..., 0], p[..., 1]
+        if not ((x >= -mx) & (x <= WIDTH + mx) & (y >= -my) & (y <= HEIGHT + my)).all():
+            raise AssertionError(f"{name}: peaks outside the {WIDTH}x{HEIGHT} frame")
+    positions, idx, times = BallDetector.filter_trajectory(out["segformerpp_b2_ball"],
+                                                           out["wasb_ball"], 30.0)
+    table = TableDetector.filter_trajectory(out["segformerpp_b2_table"], out["hrnet_table"])
+    if positions.shape != (len(idx), 2) or times.shape != idx.shape or table.shape != (13, 3):
+        raise AssertionError("filter_trajectory returned bad shapes")
+    # random weights make the two models of a pair disagree; a model always agrees with
+    # itself: every frame kept (the ball is always visible, threshold -inf), and every
+    # table keypoint seen in 3 or more frames is fused
+    b2 = out["segformerpp_b2_ball"]
+    _, self_idx, self_times = BallDetector.filter_trajectory(b2, b2, 30.0)
+    kp = out["hrnet_table"]
+    self_table = TableDetector.filter_trajectory(kp, kp)
+    if (list(self_idx) != list(range(N_FRAMES)) or not np.allclose(self_times, self_idx / 30.0)
+            or list(self_table[:, 2]) != list((kp[..., 2].sum(0) >= 3).astype(float))):
+        raise AssertionError("filter_trajectory of a model with itself dropped detections")
+    fps = {k: N_FRAMES / v for k, v in secs.items()}
+    fps["four_detectors"] = N_FRAMES / sum(secs.values())
+    log("detectors", frames=N_FRAMES, chunk=HR_CHUNK,
+        frames_per_s=json.dumps({k: round(v, 3) for k, v in fps.items()}), launches=launches,
+        ball_kept=len(idx), table_visible=int(table[:, 2].sum()))
+    if launches != expected:
+        raise AssertionError(f"main path launches {launches}, expected {expected}")
+
+    # the main path's kernels at its batch (K1/K2 at 8 here, 4 in the k1/k2 phases):
+    # each detector's heatmaps on its first chunk against its plain path in f32
+    heat_err = {}
+    for name, (det, items) in dets.items():
+        chunk = [it if isinstance(it, tuple) else (it,) for it in items[:HR_CHUNK]]
+        images = torch.cat([torch.from_numpy(np.stack([it[k] for it in chunk])).to(DEVICE)
+                            for k in range(len(chunk[0]))], dim=-1)
+        tol = HEAT_TOL if name.startswith("segformer") else HRNET_HEAT_TOL
+        heat_err[name] = plain_heat_err(torch, det, images)
+        if not heat_err[name] <= tol:
+            raise AssertionError(f"{name}: heatmaps of the kernel path differ from the f32 "
+                                 f"plain path: {heat_err[name]} > {tol}")
+    log("detectors", heat_rel_err=json.dumps({k: round(v, 5) for k, v in heat_err.items()}))
+    res = dict(frames_per_s=fps, seconds=secs, launches=launches, ball_kept=int(len(idx)),
+               table_keypoints=table.tolist(), heat_rel_err=heat_err)
+    if profile:
+        chunk = {k: (d, items[:HR_CHUNK]) for k, (d, items) in dets.items()}
+        res["profile"] = profile_calls(
+            torch, lambda: [d.predict(items) for d, items in chunk.values()],
+            "one warm chunk of 8 frames through the four detectors")
+    return res
+
+
+def profile_calls(torch, fn, label):
+    """Device time by kernel over one warm call of `fn` (torch.profiler), the idle share,
+    and the Python lines that make the host wait for the card."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        det.predict(triples)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t)
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -320,23 +640,24 @@ def profile_predict(torch, det, triples):
     host = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0]
     host.sort(key=lambda r: -r[1])
-    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-           "top": [{"kernel": k[:120], "ms": ms, "count": n} for k, ms, n in kernels[:15]],
+    res = {"what": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms,
+           "top": [{"kernel": k[:120], "ms": ms, "count": n} for k, ms, n in kernels[:40]],
            "host_top": [{"op": k[:120], "self_ms": ms, "count": n} for k, ms, n in host[:15]]}
-    # which Python lines make the host wait for the card
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            det.predict(triples)
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     where = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
                                 if "synchroniz" in str(w.message))
     res["host_syncs"] = dict(where)
-    log("profile", wall_ms=f"{wall_ms:.1f}", device_busy_ms=f"{busy_ms:.1f}",
-        idle_share=f"{res['idle_share']:.3f}", host_syncs=json.dumps(dict(where)))
-    for r in res["top"]:
+    log("profile", what=json.dumps(label), wall_ms=f"{wall_ms:.1f}",
+        device_busy_ms=f"{busy_ms:.1f}", idle_share=f"{res['idle_share']:.3f}",
+        host_syncs=json.dumps(dict(where)))
+    for r in res["top"][:20]:
         print(f"  {r['ms']:9.3f} ms  x{r['count']:<4d} {r['kernel'][:100]}", flush=True)
     print("  host ops by self CPU time:", flush=True)
     for r in res["host_top"]:
@@ -348,7 +669,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm predict with torch.profiler (time by kernel)")
+                    help="also trace one warm b2 predict and one warm chunk of the four "
+                         "detectors with torch.profiler (time by kernel)")
     opts = ap.parse_args()
 
     import torch
@@ -358,6 +680,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import upliftingtabletennis_torch.ops.fused_attention as k1
+    import upliftingtabletennis_torch.ops.fused_conv as k5
     import upliftingtabletennis_torch.ops.fused_ffn as k2
     from upliftingtabletennis_torch.ops import _build
 
@@ -386,13 +709,20 @@ def main() -> int:
     class Ops:  # the wrappers whose launch counts the main path is held to
         fused_attention_block = k1.fused_attention_block
         fused_ln_ffn = k2.fused_ln_ffn
+        conv3x3_bias_act = k5.conv3x3_bias_act
+        conv1x1_bias_act = k5.conv1x1_bias_act
+        ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen)
     k2_entries = run_k2(torch, F, Ops, gen)
     slice_res = run_slice(torch, Ops, profile=opts.profile)
+    k5_entries = run_k5(torch, F, gen)
+    frames = synthetic_frames(N_FRAMES + 2)
+    hrnet_res = run_hrnet(torch, frames)
+    det_res = run_detectors(torch, Ops, frames, profile=opts.profile)
 
-    # 6. hygiene
+    # 9. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -415,17 +745,41 @@ def main() -> int:
                 "per": "one b2 forward at batch %d (sum over its 16 blocks)" % CHUNK,
                 "per_stage": entries}
 
+    def k5_summary(name, replaces):
+        entries = [e for e in k5_entries if e["kernel"] == name]
+
+        def per_forward(key):  # summed over the launches of one WASB forward at chunk 8
+            return sum(e[key] * e["per_forward"]["wasb"] for e in entries)
+
+        bytes_share = sum(e["bound_ms"] * e["per_forward"]["wasb"] for e in entries
+                          if e["bound_by"] == "bytes")
+        n = sum(e["per_forward"]["wasb"] for e in entries)
+        return {"name": name, "route": "cuda",
+                "source": "upliftingtabletennis_torch/ops/csrc/fused_conv.cu",
+                "replaces": replaces, "launches": det_res["launches"][name],
+                "max_abs_err": max(e["max_abs_err"] for e in entries),
+                "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
+                "bound_ms": per_forward("bound_ms"),
+                "bound_by": "bytes" if bytes_share * 2 > per_forward("bound_ms") else "operations",
+                "library_ms": per_forward("library_ms"),
+                "per": f"one WASB forward at batch {HR_CHUNK}, 1280x704 "
+                       f"(sum over its {n} launches)",
+                "per_shape": entries}
+
     kernels = [
         summary("fused_attention_block", "upliftingtabletennis_torch/ops/csrc/fused_attention.cu",
                 "upliftingtabletennis_tpu/ops/fused_attention.py:34", k1_entries),
         summary("fused_ln_ffn", "upliftingtabletennis_torch/ops/csrc/fused_ffn.cu",
                 "upliftingtabletennis_tpu/ops/fused_ffn.py:50", k2_entries),
+        k5_summary("conv3x3_bias_act", "upliftingtabletennis_tpu/ops/fused_conv.py:70"),
+        k5_summary("conv1x1_bias_act", "upliftingtabletennis_tpu/ops/fused_conv.py:98"),
     ]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
-                       "slice": slice_res, "total_s": total}, f, indent=1)
+                       "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
+                       "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""K1 and K2 CUDA kernels against their plain PyTorch versions on the card.
+"""K1, K2 and K5 CUDA kernels against their plain PyTorch versions on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc and skip without them. They import
 only torch, so they run where JAX is absent:
@@ -6,19 +6,24 @@ only torch, so they run where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Shapes are small and ragged (N not a multiple of the 64-row tile, Nkv below one
-64-key chunk, head dim 32 as in b0, H and W not multiples of the FFN tile). The
-plain version runs in f32 on the same bf16 inputs; tolerance as in chip_smoke.py:
-|kernel - plain| <= 6e-2 + 2e-2 |plain|.
+64-key chunk, head dim 32 as in b0, H and W not multiples of the FFN or conv tile;
+the stems' Ci = 3 and 9, the heads' Co = 3 and 13). The plain version runs in f32 on
+the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <= 6e-2 +
+2e-2 |plain| for K1 and K2, 1e-2 + 8e-3 |plain| for K5.
 """
 import pytest
 import torch
 
 from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plain,
                                                            fused_attention_block)
+from upliftingtabletennis_torch.ops.fused_conv import (conv1x1_bias_act, conv1x1_bias_act_plain,
+                                                      conv3x3_bias_act, conv3x3_bias_act_plain,
+                                                      pack)
 from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn, ln_ffn_plain
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 6e-2, 2e-2
+K5_ATOL, K5_RTOL = 1e-2, 8e-3
 
 
 @pytest.fixture
@@ -66,7 +71,64 @@ def test_k2_kernel_matches_plain(gen, B, H, W, C):
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
 
 
+def _conv_case(gen, ks, B, H, W, Ci, Co, bias, res):
+    x = _rnd(gen, B, H, W, Ci)
+    w = _rnd(gen, *((3, 3) if ks == 3 else ()), Ci, Co, std=(ks * ks * Ci) ** -0.5)
+    b = _rnd(gen, Co, std=0.1) if bias else None
+    r = _rnd(gen, B, H, W, Co) if res else None
+    return x, w, b, r
+
+
+# (B, H, W, Ci, Co, bias, residual, relu): stems, block convs, heads; H and W ragged
+@pytest.mark.parametrize("B,H,W,Ci,Co,bias,res,relu", [
+    (2, 13, 37, 9, 64, True, False, True), (1, 17, 19, 3, 64, True, False, True),
+    (2, 11, 45, 16, 16, True, True, True), (1, 9, 35, 16, 16, False, False, False),
+    (1, 10, 18, 32, 32, True, True, True), (2, 7, 21, 64, 64, True, False, True),
+    (1, 12, 17, 128, 16, True, False, True), (1, 5, 23, 128, 128, True, True, True),
+])
+def test_k5a_kernel_matches_plain(gen, B, H, W, Ci, Co, bias, res, relu):
+    x, w, b, r = _conv_case(gen, 3, B, H, W, Ci, Co, bias, res)
+    before = conv3x3_bias_act.launches
+    got = conv3x3_bias_act(x, w, b, r, relu=relu)
+    packed = conv3x3_bias_act(x, pack(w, b), None, r, relu=relu)
+    torch.cuda.synchronize()
+    assert conv3x3_bias_act.launches == before + 2
+    want = conv3x3_bias_act_plain(x.float(), w.float(), None if b is None else b.float(),
+                                  None if r is None else r.float(), relu=relu)
+    torch.testing.assert_close(got.float(), want, atol=K5_ATOL, rtol=K5_RTOL)
+    assert torch.equal(got, packed)
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,bias,res,relu", [
+    (2, 9, 37, 16, 3, True, False, False), (1, 11, 33, 16, 13, True, False, False),
+    (1, 13, 18, 64, 32, True, False, True), (2, 7, 20, 64, 128, True, False, False),
+    (1, 10, 17, 32, 128, True, True, True), (1, 6, 41, 32, 16, False, False, False),
+    (1, 5, 9, 128, 64, True, False, False), (1, 8, 12, 128, 32, True, True, True),
+])
+def test_k5b_kernel_matches_plain(gen, B, H, W, Ci, Co, bias, res, relu):
+    x, w, b, r = _conv_case(gen, 1, B, H, W, Ci, Co, bias, res)
+    before = conv1x1_bias_act.launches
+    got = conv1x1_bias_act(x, w, b, r, relu=relu)
+    torch.cuda.synchronize()
+    assert conv1x1_bias_act.launches == before + 1
+    want = conv1x1_bias_act_plain(x.float(), w.float(), None if b is None else b.float(),
+                                  None if r is None else r.float(), relu=relu)
+    torch.testing.assert_close(got.float(), want, atol=K5_ATOL, rtol=K5_RTOL)
+
+
+def test_k5_rejects_shape_without_instantiation(gen):
+    x = torch.zeros(1, 4, 4, 48, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 48, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="instantiation"):
+        conv3x3_bias_act(x, w)
+
+
 def test_kernels_reject_float32(gen):
+    xc = torch.zeros(1, 4, 4, 16, device="cuda")
+    with pytest.raises(TypeError):
+        conv3x3_bias_act(xc, torch.zeros(3, 3, 16, 16, device="cuda"))
+    with pytest.raises(TypeError):
+        conv1x1_bias_act(xc, torch.zeros(16, 16, device="cuda"))
     C, HID = 64, 256
     x = torch.zeros(1, 4, C, device="cuda")
     z = lambda *s: torch.zeros(*s, device="cuda")  # noqa: E731

@@ -14,7 +14,7 @@ from upliftingtabletennis_tpu.ops.resize import resize_bilinear_down as jax_resi
 from upliftingtabletennis_torch.data.image_transforms import normalize_image
 from upliftingtabletennis_torch.ops.peak import extract_peaks
 from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
-from upliftingtabletennis_torch.pipeline.interface import BallDetector
+from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
 from upliftingtabletennis_torch.utils.convert import flax_to_torch
 
 torch.set_num_threads(1)
@@ -107,6 +107,48 @@ def test_ball_detector_matches_jax_detector():
     np.testing.assert_allclose(pos, jpos, atol=0.5, rtol=0)
 
 
+# (port detector, JAX detector name, model, input channels, heatmap tolerance): the
+# tolerances of the model tests (tests/test_torch_hrnet.py, tests/test_torch_segformer.py)
+@pytest.mark.parametrize("kind,name,channels,rel_tol", [
+    ("ball", "wasb", 9, 2e-4), ("table", "hrnet", 3, 2e-4), ("table", "segformerpp_b0", 3, 2e-5),
+])
+def test_detectors_match_jax_detectors(kind, name, channels, rel_tol):
+    """Same converted weights, same seeded 192x108 frames, model input 96x64; heatmaps in
+    f32 on the same preprocessed input. The port's predict is then held against the JAX
+    peak fit on the JAX heatmaps: within 0.05 px at 1920x1080 (a heatmap pixel is 20 px
+    here), visibility (the table's threshold 0.1) equal. The JAX detector's own predict
+    resizes in bf16 on the CPU, which moves an HRNet peak of random weights by pixels."""
+    from upliftingtabletennis_tpu.pipeline import interface as jax_interface
+
+    jcls = jax_interface.BallDetector if kind == "ball" else jax_interface.TableDetector
+    cls = BallDetector if kind == "ball" else TableDetector
+    jdet = jcls(name, chunk=2, resolution=(96, 64))
+    jdet._ensure_init(channels)
+    det = cls(name, checkpoint=flax_to_torch(jax.device_get(jdet._variables)), chunk=2,
+              resolution=(96, 64), device="cpu")
+
+    frames = np.random.default_rng(8).integers(0, 256, size=(5, 108, 192, 3), dtype=np.uint8)
+    if kind == "ball":
+        items = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(3)]
+        images = np.stack([np.concatenate(t, -1) for t in items])
+    else:
+        items = list(frames[:3])
+        images = frames[:3]
+    x = jax_normalize(jax_resize(jnp.asarray(images), 64, 96, exact=True))
+    out = jax.jit(jdet.model.apply)(jdet._variables, x)
+    want = np.moveaxis(np.asarray(out[0] if isinstance(out, tuple) else out), -1, 1)
+    got = det.heatmaps(torch.from_numpy(images)).numpy()
+    assert np.abs(got - want).max() <= rel_tol * np.abs(want).max()
+
+    pos, extra = det.predict(items)  # 2 chunks, the second padded
+    jpos = np.asarray(jax_extract_peaks(jnp.asarray(want), 1920, 1080, threshold=det.threshold))
+    if kind == "ball":
+        jpos = jpos[:, 0]
+    assert extra is None and pos.shape == jpos.shape and np.isfinite(pos).all()
+    np.testing.assert_allclose(pos[..., :2], jpos[..., :2], atol=5e-2, rtol=0)
+    np.testing.assert_array_equal(pos[..., 2], jpos[..., 2])
+
+
 def test_ball_detector_reads_head_style_from_checkpoint():
     from upliftingtabletennis_torch.models.segformer import MMSegHead, SegFormerNet
 
@@ -126,9 +168,35 @@ def test_ball_detector_default_device_raises_without_cuda():
         BallDetector()
 
 
+def test_table_detector_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        TableDetector()
+
+
 def test_hub_entry_point_on_cpu():
     from upliftingtabletennis_torch.hub import ball_detection
 
     det = ball_detection("segformerpp_b0", device="cpu", chunk=3)
     assert det.resolution == (1920, 1088) and det.chunk == 3 and det.dtype == torch.float32
     assert next(det.model.parameters()).device.type == "cpu"
+
+
+def test_table_hub_entry_point_on_cpu():
+    from upliftingtabletennis_torch.hub import table_detection
+
+    det = table_detection("hrnet", device="cpu", chunk=2, resolution=(64, 32))
+    assert det.threshold == 0.1 and det.model.model.conv1.in_channels == 3
+    kp, extra = det.predict([np.zeros((54, 96, 3), np.uint8)] * 3)
+    assert extra is None and kp.shape == (3, 13, 3) and np.isfinite(kp).all()
+    fused = det.filter_trajectory(kp, kp)
+    assert fused.shape == (13, 3)
+
+
+def test_hrnet_detector_reads_input_frames_from_checkpoint():
+    from upliftingtabletennis_torch.models.hrnet import WASBNet
+
+    det = BallDetector("wasb", checkpoint=WASBNet(in_frames=3).state_dict(), chunk=1,
+                       resolution=(32, 32), device="cpu")
+    assert det.model.model.conv1.in_channels == 9 and det.resolution == (32, 32)

@@ -5,10 +5,12 @@ re-implements it module by module in PyTorch, with every Pallas kernel on
 the ported path replaced by a hand-written CUDA kernel for Hopper (sm_90a).
 It imports only torch, numpy and the standard library at runtime.
 
-Covered today: the ball detector (`BallDetector`, `hub.ball_detection`)
-with the SegFormer-b0/b2 models. Entry points run on CUDA by default and
-raise when CUDA is absent; pass ``device="cpu"`` for the plain PyTorch
-path the tests use.
+Covered today: the four detectors of the main path and their filters:
+`BallDetector` (SegFormer b0/b2, WASB-HRNet; `hub.ball_detection`),
+`TableDetector` (SegFormer b0/b2, HRNet; `hub.table_detection`) and their
+`filter_trajectory` methods. Entry points run on CUDA by default and raise
+when CUDA is absent; pass ``device="cpu"`` for the plain PyTorch path the
+tests use.
 """
 from upliftingtabletennis_torch._device import resolve_device
 

@@ -1,11 +1,13 @@
 """Detector factory and per-model native input resolutions.
 
-Port of `upliftingtabletennis_tpu/models/factory.py` for the models this
-slice covers (SegFormer b0/b2). The HRNet and ViTPose detectors are later
-slices of the port and raise NotImplementedError naming their ROADMAP item.
+Port of `upliftingtabletennis_tpu/models/factory.py` for the models the port
+covers: SegFormer b0/b2 (ball and table), WASB (HRNet, ball only) and HRNet
+(table only). ViTPose is a later slice and raises NotImplementedError naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
+from upliftingtabletennis_torch.models.hrnet import TableHRNet, WASBNet
 from upliftingtabletennis_torch.models.segformer import SegFormerNet
 
 # (W, H) native input resolutions (ref: models/factory.py:16 of the JAX package)
@@ -17,11 +19,7 @@ DETECTOR_RESOLUTIONS = {
     "hrnet": (1280, 704),
 }
 
-_NOT_PORTED = {
-    "wasb": "ROADMAP queue 1, item 3 (HRNet detectors)",
-    "hrnet": "ROADMAP queue 1, item 3 (HRNet detectors)",
-    "vitpose": "ROADMAP queue 1, item 12 (models/vit.py)",
-}
+_NOT_PORTED = {"vitpose": "ROADMAP queue 1, item 12 (models/vit.py)"}
 
 
 def get_detector(name: str, task: str = "ball", in_frames: int = None,
@@ -30,15 +28,27 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     """Build a detector. Returns (model, (W, H) native resolution).
 
     task 'ball': 3-frame input, 1 heatmap channel; 'table': 1 frame, 13 channels.
+    The SegFormer options (classify_invisible, head_style, decoder_dim) do not
+    apply to the HRNet models. kernels=False runs the plain versions of the
+    model's kernels (for comparisons only).
     """
     if task not in ("ball", "table"):
         raise ValueError(f"unknown task {task!r}")
     if name in _NOT_PORTED:
         raise NotImplementedError(f"detector {name!r} is not ported yet: {_NOT_PORTED[name]}")
-    if name not in ("segformerpp_b0", "segformerpp_b2"):
-        raise ValueError(f"unknown detector {name!r}")
     out_channels = 1 if task == "ball" else 13
     frames = in_frames if in_frames is not None else (3 if task == "ball" else 1)
-    model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
-                         head_style=head_style, decoder_dim=decoder_dim, kernels=kernels)
+    if name in ("segformerpp_b0", "segformerpp_b2"):
+        model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
+                             head_style=head_style, decoder_dim=decoder_dim, kernels=kernels)
+    elif name == "wasb":
+        if task != "ball":
+            raise ValueError("wasb is a ball detector (task='ball')")
+        model = WASBNet(frames, kernels=kernels)
+    elif name == "hrnet":
+        if task != "table":
+            raise ValueError("hrnet is a table detector (task='table')")
+        model = TableHRNet(13, kernels=kernels)
+    else:
+        raise ValueError(f"unknown detector {name!r}")
     return model, DETECTOR_RESOLUTIONS[name]

@@ -1,3 +1,3 @@
-from upliftingtabletennis_torch.pipeline.interface import BallDetector
+from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
 
-__all__ = ["BallDetector"]
+__all__ = ["BallDetector", "TableDetector"]

@@ -1,18 +1,27 @@
-"""Public detector API: `BallDetector` (port of `upliftingtabletennis_tpu/pipeline/interface.py`).
+"""Public detector API: `BallDetector`, `TableDetector` (port of
+`upliftingtabletennis_tpu/pipeline/interface.py`).
 
 Frames are processed in fixed-size chunks (the last chunk padded by
 repeating its last image): resize to the model resolution (cv2 half-pixel
 bilinear), ImageNet normalisation, bf16 on CUDA, the detector forward,
 then subpixel peaks scaled to the 1920x1080 working resolution.
 
+Models: SegFormer b0/b2 (ball and table), WASB (HRNet, ball) and HRNet
+(table). The HRNet models keep f32 weights and fold their BatchNorms once,
+at the first forward, into the working dtype.
+
 Weights: `checkpoint` is a torch state dict (or a path to one saved with
 `torch.save`), e.g. the output of `utils/convert.py:flax_to_torch`; its
-tensors say which decode head and widths to build. Without a checkpoint the
-model is initialised from a seeded `torch.Generator` (smoke runs,
-benchmarks).
+tensors say which decode head, widths and input frames to build. Without a
+checkpoint the model is initialised from a seeded `torch.Generator` (smoke
+runs, benchmarks).
 
-Not ported in this slice: `flip_test`, the slab/rolling-window paths,
-`TableDetector` and the rest of the pipeline (ROADMAP queue 1, item 7).
+The dual-model filters are `BallDetector.filter_trajectory` and
+`TableDetector.filter_trajectory` (`pipeline/filters.py`).
+
+Not ported yet: `flip_test`, the slab/rolling-window paths,
+`TableDetector.calibrate_camera` and the rest of the pipeline (ROADMAP queue 1,
+items 6 and 7).
 """
 from __future__ import annotations
 
@@ -26,8 +35,9 @@ from upliftingtabletennis_torch.data.image_transforms import normalize_image
 from upliftingtabletennis_torch.models.factory import get_detector
 from upliftingtabletennis_torch.ops.peak import extract_peaks
 from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
+from upliftingtabletennis_torch.pipeline import filters
 
-__all__ = ["BallDetector", "WIDTH", "HEIGHT", "init_weights"]
+__all__ = ["BallDetector", "TableDetector", "WIDTH", "HEIGHT", "init_weights"]
 
 WIDTH, HEIGHT = 1920, 1080  # inference working resolution (ref: pipeline/interface.py:38)
 
@@ -48,7 +58,9 @@ def init_weights(model: torch.nn.Module) -> None:
 
 
 def _architecture(state: Mapping[str, torch.Tensor]) -> dict:
-    """Head style and widths a converted state dict was made for."""
+    """The architecture options a converted state dict was made for."""
+    if "model.conv1.weight" in state:  # HRNet family: only the input frames vary
+        return dict(in_frames=int(state["model.conv1.weight"].shape[1]) // 3)
     if "decode_head.fusion_conv.weight" in state:
         head_style, fuse = "mmseg", state["decode_head.fusion_conv.weight"]
     else:
@@ -83,7 +95,9 @@ class _Detector:
             init_weights(self.model)
         else:
             self.model.load_state_dict(state)
-        self.model.eval().to(self.device, self.dtype)
+        self.model.eval().to(self.device)
+        if not getattr(self.model, "FOLDS_BATCH_NORM", False):
+            self.model.to(self.dtype)
 
     @torch.no_grad()
     def heatmaps(self, images: torch.Tensor) -> torch.Tensor:
@@ -93,7 +107,8 @@ class _Detector:
             x = resize_bilinear_down(images, MH, MW)
         else:
             x = images.float()
-        heat = self.model(normalize_image(x).to(self.dtype))[0]
+        out = self.model(normalize_image(x).to(self.dtype))
+        heat = out[0] if isinstance(out, tuple) else out  # TableHRNet returns the heatmap
         return heat.permute(0, 3, 1, 2).float()
 
     def _predict_frames(self, items: Sequence[Sequence[np.ndarray]]) -> np.ndarray:
@@ -126,7 +141,7 @@ class _Detector:
 
 
 class BallDetector(_Detector):
-    """Ball detection on 3-frame triplets (prev, cur, next), SegFormer b0/b2."""
+    """Ball detection on 3-frame triplets (prev, cur, next): SegFormer b0/b2 or WASB."""
 
     def __init__(self, model_name: str = "segformerpp_b2", checkpoint=None, chunk: int = 16,
                  resolution=None, device="cuda"):
@@ -138,3 +153,28 @@ class BallDetector(_Detector):
 
         Returns (positions (T, 3): x, y at 1920x1080 and visibility, None)."""
         return self._predict_frames([tuple(t) for t in image_triples])[:, 0], None
+
+    @staticmethod
+    def filter_trajectory(pred1, pred2, fps):
+        """Frames where both models see the ball within 20 px: (positions, indices, times)."""
+        return filters.filter_trajectory_ball(pred1, pred2, fps)
+
+
+class TableDetector(_Detector):
+    """Table keypoint detection on single frames: SegFormer b0/b2 or HRNet (13 keypoints)."""
+
+    def __init__(self, model_name: str = "segformerpp_b2", checkpoint=None, chunk: int = 16,
+                 resolution=None, device="cuda"):
+        super().__init__(model_name, "table", checkpoint, chunk, threshold=0.1,
+                         resolution=resolution, device=device)
+
+    def predict(self, images: Sequence):
+        """images: sequence of RGB arrays (H, W, 3).
+
+        Returns (keypoints (T, 13, 3): x, y at 1920x1080 and visibility, None)."""
+        return self._predict_frames([(im,) for im in images]), None
+
+    @staticmethod
+    def filter_trajectory(pred1, pred2):
+        """(T, 13, 3) x2 -> (13, 3): per keypoint, the largest DBSCAN cluster's centroid."""
+        return filters.filter_trajectory_table(pred1, pred2)
