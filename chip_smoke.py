@@ -34,7 +34,27 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             just after; frames/s of each and of the four together; each detector's
             heatmaps on one chunk of 8 against a `kernels=False` copy in f32 with the
             same weights; then both `filter_trajectory` calls;
-9. hygiene  neither JAX nor the JAX package was imported.
+9. k3       K3 (flash cross-attention, `ops/flash_attention.py`) against its plain version
+            (f32 on the same bf16 inputs) at the four b2 ToMe stage shapes at chunk 8 and
+            1600x896, one b0 shape (hd 32, Nkv 2040) and one ragged shape, at K3's own
+            limit, which must also reject two faults simulated with the plain version (a
+            skipped key chunk; the ragged shape's tail unmasked); kernel, plain and
+            `F.scaled_dot_product_attention` times; the bound;
+10. tome    the b2 ball detector with ToMe at ratio 0.4 (`SegFormerNet(tome_ratio=0.4)`
+            with the detector's weights) on the 16 triplets at chunk 8: 16 K3, 0 K1 and
+            16 K2 launches per forward, frames/s, peak device memory with and without ToMe;
+            K3 against its plain version on the (q, k, v) of the first block of each stage;
+            heatmaps against a `kernels=False` copy in bf16 with its own merge plans and
+            with the kernel path's; planted faults (wrong merge partners, a K3 that skips a
+            key chunk) that must fail those limits; the share of tokens whose merge partner
+            differs between the two paths, and how many of them a tie decides;
+11. flip    `ball_detection("segformerpp_b2", chunk=8, flip_test=True)` on the triplets:
+            32 K1 and 32 K2 launches per chunk, frames/s, heatmaps against a
+            `kernels=False` f32 copy with the same flip test;
+12. b0      `table_detection("segformerpp_b0", chunk=8)` on the centre frames (K2 at
+            b0's widths 32 and 160 on the main path): launches, frames/s, heatmaps against
+            a `kernels=False` f32 copy;
+13. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -45,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -62,6 +83,7 @@ B2_STAGES = [  # (H, W, C, heads, Nkv, depth) of segformerpp_b2 at 1600x896
     (28, 50, 512, 8, 1400, 3),
 ]
 K2_RAGGED = (34, 60, 256)  # segformerpp_b0 stage 4 at 1920x1088: H, W not tile multiples
+K2_B0 = [(272, 480, 32), (68, 120, 160)]  # segformerpp_b0 stages 1 and 3 at 1920x1088
 CHUNK = 4  # the first slice's chunk: the batch K1/K2 see in the k1, k2 and slice phases
 N_TRIPLETS = 8
 DEVICE = "cuda"
@@ -73,6 +95,14 @@ N_FRAMES = 16  # centre frames of the four-detector phase (2 chunks of 8)
 K5_RAGGED = [(3, 16, 16, 701, 1277, True, True), (1, 32, 16, 349, 637, False, False)]
 K5A_PER_FORWARD, K5B_PER_FORWARD, STRIDE2_PER_FORWARD = 40, 14, 18
 B2_PER_FORWARD = 16  # MiTBlocks of segformerpp_b2: one K1 and one K2 launch each
+B0_PER_FORWARD = 8   # MiTBlocks of segformerpp_b0
+TOME_RATIO = 0.4  # the ratio of the JAX package's own ToMe test (tests/test_token_merge.py)
+TOME_PLANS_PER_FORWARD = 16  # merging starts at N >= 256: every b2 block at 1600x896
+# K3 shapes: (B, Nq, Nkv, heads, hd, depth). The four b2 stages at chunk 8, 1600x896,
+# with ToMe at 0.4 (Nq = N - int(0.4 N)); b0 stage 1 at 1920x1088 (130,560 tokens); ragged.
+K3_RAGGED = (2, 1037, 777, 2, 64)  # the last chunk holds 9 keys and 55 zero-filled slots
+K3_SHAPES = [(8, 53760, 1400, 1, 64, 3), (8, 13440, 1400, 2, 64, 4), (8, 3360, 1400, 5, 64, 6),
+             (8, 840, 1400, 8, 64, 3), (8, 78336, 2040, 1, 32, 0), (*K3_RAGGED, 0)]
 
 # H100 SXM peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -86,6 +116,13 @@ SFU_PER_S = 16 * 132 * 1.98e9
 # an ulp (0.0156 at |x| in [4, 8)); bf16 rounding of LN(x), q or the hidden tensor and
 # of the attention weights adds a few ulps of the half-block's update.
 ATOL, RTOL = 6e-2, 2e-2
+# K3 (its inputs are the same bf16 tensors on both sides): the kernel rounds each
+# probability to bf16 before P.V (relative error at most u = 2^-8, bf16's unit roundoff;
+# the row sum l stays f32) and its output (at most u |out|), so |kernel - plain| <=
+# u (sum_j p_j |v_j| / l + |out|) to first order in u; the f32 sums add about 1e-7 of it.
+# The limit is that bound, per element (`k3_check`). On random inputs it is about 3e-3,
+# where a mean |out| of 0.04 sits below K1's 6e-2 absolute term.
+K3_ULPS = 2.0 ** -8
 # K5: its inputs are the same bf16 tensors on both sides and only its output is
 # rounded to bf16 (half an ulp: at most 2^-8 |plain|, 0.031 at |x| in [8, 16)); the
 # rest is the order of the f32 sums
@@ -93,6 +130,15 @@ K5_ATOL, K5_RTOL = 1e-2, 8e-3
 # heatmaps of the bf16 kernel path vs the f32 plain path, relative to max |plain|:
 # 16 residual blocks each round their output to bf16 (2^-9 relative).
 HEAT_TOL = 5e-2
+# the ToMe kernel path (bf16) against the ToMe plain path in bf16, each with the merge
+# plans of its own activations. In bf16 (spacing 2^-8 near 1) the best similarities of
+# neighbouring tokens tie: on the 1600x896 synthetic triplets a tie decides the merge of
+# 26-48% of the tokens per block, and 99% of the tokens whose partner differs between the
+# two paths. A tied token takes the mean query of another, similar neighbour. Readings:
+# the two paths 3.6e-2 of max; ties broken by the last argmax instead of the first 6.0e-2;
+# a wrong plan (every partner half of set B away) 0.18. The limit lies between; on the
+# kernel path's own plans the two paths are held to HEAT_TOL.
+TOME_HEAT_TOL = 1e-1
 # the same for the HRNets: every one of their 72 convs and 9 fuse sums rounds to bf16
 # (2^-9 relative), through 16 residual blocks; the plain path run in bf16 on the CPU
 # (the kernels' roundings) gave 1.2e-2 (WASB) and 2.4e-2 (table) at 176x320, and the
@@ -141,6 +187,16 @@ def k2_bound(B, N, C, HID):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3_bound(B, Nq, Nkv, heads, hd):
+    """(ms, bound_by) for K3: q, k, v read once, the output written once."""
+    nbytes = 2 * (2 * B * Nq * heads * hd + 2 * B * Nkv * heads * hd)
+    flops = 4 * B * heads * Nq * Nkv * hd  # QK^T and PV on the tensor cores
+    exps = B * heads * Nq * Nkv
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / BF16_TC_FLOPS, exps / SFU_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def synthetic_frames(n_frames: int):
     """(n_frames, 1080, 1920, 3) uint8: a textured background and a bright Gaussian
     blob moving across the frames."""
@@ -164,6 +220,20 @@ def compare(torch, got, want, atol=ATOL, rtol=RTOL):
     max_rel = (err / want.float().abs().clamp_min(1e-3)).max().item()
     ok = bool((err <= atol + rtol * want.float().abs()).all().item())
     return max_abs, max_rel, ok
+
+
+def k3_check(torch, got, q, k, v, want, scale=None):
+    """K3's output `got` against its plain version `want` (f32) at K3's limit,
+    K3_ULPS (|want| + softmax(q kᵀ) |v|) per element: (max_abs_err, max of err / limit,
+    ok)."""
+    from upliftingtabletennis_torch.ops.flash_attention import cross_attention_plain
+
+    limit = K3_ULPS * (want.abs() + cross_attention_plain(q.float(), k.float(),
+                                                          v.float().abs(), scale))
+    err = (got.float() - want).abs()
+    ok = bool((err <= limit).all().item())
+    worst = (err / limit.clamp_min(1e-30)).max().item()
+    return err.max().item(), worst, ok
 
 
 def run_k1(torch, F, ops, gen):
@@ -225,6 +295,7 @@ def run_k2(torch, F, ops, gen):
     from upliftingtabletennis_torch.ops.fused_ffn import kernel_tile, ln_ffn_plain
 
     shapes = [(H, W, C, depth) for H, W, C, _, _, depth in B2_STAGES] + [(*K2_RAGGED, 0)]
+    shapes += [(*hwc, 0) for hwc in K2_B0]
     entries = []
     for H, W, C, depth in shapes:
         B, N, HID = CHUNK, H * W, 4 * C
@@ -274,6 +345,69 @@ def run_k2(torch, F, ops, gen):
             raise AssertionError(f"K2 disagrees with its plain version at {(H, W, C)}: "
                                  f"max_abs_err={max_abs}")
         entries.append(e)
+    return entries
+
+
+def run_k3(torch, F, ops, gen):
+    from upliftingtabletennis_torch.ops.flash_attention import cross_attention_plain
+
+    entries = []
+    for B, Nq, Nkv, heads, hd, depth in K3_SHAPES:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+        q, k, v = rnd(B, Nq, heads, hd), rnd(B, Nkv, heads, hd), rnd(B, Nkv, heads, hd)
+
+        def kernel():
+            return ops.flash_cross_attention(q, k, v)
+
+        def plain():
+            return cross_attention_plain(q.float(), k.float(), v.float())
+
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        max_abs, worst, ok = k3_check(torch, got, q, k, v, want)
+        # the limit must see two faults, simulated with the plain version: the keys of
+        # one 64-key chunk skipped, and (at the ragged shape) the last chunk's
+        # zero-filled slots left unmasked, logit 0
+        keep = torch.cat([torch.arange(64), torch.arange(128, Nkv)]).to(DEVICE)
+        faults = {"chunk": cross_attention_plain(q.float(), k[:, keep].float(),
+                                                 v[:, keep].float()).to(q.dtype)}
+        if (B, Nq, Nkv, heads, hd) == K3_RAGGED:
+            pad = torch.zeros(B, -Nkv % 64, heads, hd, device=DEVICE, dtype=k.dtype)
+            faults["tail"] = cross_attention_plain(
+                q.float(), torch.cat([k, pad], 1).float(), torch.cat([v, pad], 1).float()
+            ).to(q.dtype)
+        fault_worst = {name: k3_check(torch, f, q, k, v, want)[1] for name, f in faults.items()}
+        del want, faults
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, h, N, hd) views
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
+        ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
+            time_ms(torch, library)
+        bound_ms, bound_by = k3_bound(B, Nq, Nkv, heads, hd)
+        e = dict(shape=dict(B=B, Nq=Nq, Nkv=Nkv, heads=heads, hd=hd), depth=depth, ms=ms,
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 max_abs_err=max_abs, err_over_limit=worst, fault_err_over_limit=fault_worst,
+                 library_vs_kernel_max_abs=lib_err)
+        log("k3", B=B, Nq=Nq, Nkv=Nkv, heads=heads, hd=hd, max_abs_err=f"{max_abs:.4g}",
+            err_over_limit=f"{worst:.4g}", ms=f"{ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            fault_err_over_limit=json.dumps({n: round(w, 3) for n, w in fault_worst.items()}),
+            ok=ok)
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version at {(B, Nq, Nkv, heads, hd)}"
+                                 f": max_abs_err={max_abs}, max err / limit {worst}")
+        if not all(w > 1 for w in fault_worst.values()):
+            raise AssertionError(f"K3's limit does not reject a simulated fault at "
+                                 f"{(B, Nq, Nkv, heads, hd)}: {fault_worst}")
+        entries.append(e)
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -517,17 +651,24 @@ def plain_heat_err(torch, det, images):
     from upliftingtabletennis_torch.models.factory import get_detector
     from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
 
+    from upliftingtabletennis_torch.ops.heatmap_decode import flip_test_heatmaps
+
     ref, _ = get_detector(det.model_name, det.task, kernels=False)
     ref.load_state_dict(det.model.state_dict())
     ref.eval().to(DEVICE, torch.float32)
     MW, MH = det.resolution
+
+    def forward(t):
+        out = ref(t)
+        return out[0] if isinstance(out, tuple) else out
+
     with torch.no_grad():
         heat = det.heatmaps(images)
         x = normalize_image(resize_bilinear_down(images, MH, MW)).to(det.dtype).float()
-        out = ref(x)
-        heat_ref = (out[0] if isinstance(out, tuple) else out).permute(0, 3, 1, 2).float()
+        heat_ref = flip_test_heatmaps(forward, x) if det.flip_test else forward(x)
+        heat_ref = heat_ref.permute(0, 3, 1, 2).float()
     err = ((heat - heat_ref).abs().max() / heat_ref.abs().max()).item()
-    del ref, heat, heat_ref, out, x
+    del ref, heat, heat_ref, x
     torch.cuda.empty_cache()
     return err
 
@@ -536,8 +677,7 @@ def run_detectors(torch, ops, frames, profile=False):
     import numpy as np
 
     from upliftingtabletennis_torch.hub import ball_detection, table_detection
-    from upliftingtabletennis_torch.pipeline.interface import (HEIGHT, WIDTH, BallDetector,
-                                                               TableDetector)
+    from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
 
     triples = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(N_FRAMES)]
     centres = [frames[t + 1] for t in range(N_FRAMES)]
@@ -564,19 +704,11 @@ def run_detectors(torch, ops, frames, profile=False):
     expected = {"fused_attention_block": 2 * n_chunks * B2_PER_FORWARD,
                 "fused_ln_ffn": 2 * n_chunks * B2_PER_FORWARD,
                 "conv3x3_bias_act": 2 * n_chunks * K5A_PER_FORWARD,
-                "conv1x1_bias_act": 2 * n_chunks * K5B_PER_FORWARD}
+                "conv1x1_bias_act": 2 * n_chunks * K5B_PER_FORWARD,
+                "flash_cross_attention": 0}
     for name, p in out.items():
-        shape = (N_FRAMES, 3) if name.endswith("ball") else (N_FRAMES, 13, 3)
-        if p.shape != shape or not np.isfinite(p).all():
-            raise AssertionError(f"{name}: bad peaks, shape {p.shape}")
-        # the 3x3 fit may place a peak up to 2 heatmap pixels beyond its argmax; the
-        # SegFormer heatmap is at 1/4 of the model input, the HRNet's at full size
-        MW, MH = dets[name][0].resolution
-        stride = 4 if name.startswith("segformer") else 1
-        mx, my = 2 * WIDTH * stride / MW, 2 * HEIGHT * stride / MH
-        x, y = p[..., 0], p[..., 1]
-        if not ((x >= -mx) & (x <= WIDTH + mx) & (y >= -my) & (y <= HEIGHT + my)).all():
-            raise AssertionError(f"{name}: peaks outside the {WIDTH}x{HEIGHT} frame")
+        check_peaks(name, dets[name][0], p, N_FRAMES, (3,) if name.endswith("ball") else (13, 3),
+                    stride=4 if name.startswith("segformer") else 1)
     positions, idx, times = BallDetector.filter_trajectory(out["segformerpp_b2_ball"],
                                                            out["wasb_ball"], 30.0)
     table = TableDetector.filter_trajectory(out["segformerpp_b2_table"], out["hrnet_table"])
@@ -604,11 +736,8 @@ def run_detectors(torch, ops, frames, profile=False):
     # each detector's heatmaps on its first chunk against its plain path in f32
     heat_err = {}
     for name, (det, items) in dets.items():
-        chunk = [it if isinstance(it, tuple) else (it,) for it in items[:HR_CHUNK]]
-        images = torch.cat([torch.from_numpy(np.stack([it[k] for it in chunk])).to(DEVICE)
-                            for k in range(len(chunk[0]))], dim=-1)
         tol = HEAT_TOL if name.startswith("segformer") else HRNET_HEAT_TOL
-        heat_err[name] = plain_heat_err(torch, det, images)
+        heat_err[name] = plain_heat_err(torch, det, chunk_images(torch, items))
         if not heat_err[name] <= tol:
             raise AssertionError(f"{name}: heatmaps of the kernel path differ from the f32 "
                                  f"plain path: {heat_err[name]} > {tol}")
@@ -621,6 +750,308 @@ def run_detectors(torch, ops, frames, profile=False):
             torch, lambda: [d.predict(items) for d, items in chunk.values()],
             "one warm chunk of 8 frames through the four detectors")
     return res
+
+
+def check_peaks(name, det, pos, n, per_frame, stride=4):
+    """Peaks finite, of shape (n, *per_frame), inside the frame up to the margin of the
+    3x3 fit: 2 heatmap pixels beyond the argmax. The heatmap is at 1/stride of the
+    model input (4 for SegFormer, 1 for the HRNets)."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.pipeline.interface import HEIGHT, WIDTH
+
+    if pos.shape != (n, *per_frame) or not np.isfinite(pos).all():
+        raise AssertionError(f"{name}: bad peaks, shape {pos.shape}")
+    MW, MH = det.resolution
+    mx, my = 2 * WIDTH * stride / MW, 2 * HEIGHT * stride / MH
+    x, y = pos[..., 0], pos[..., 1]
+    if not ((x >= -mx) & (x <= WIDTH + mx) & (y >= -my) & (y <= HEIGHT + my)).all():
+        raise AssertionError(f"{name}: peaks outside the {WIDTH}x{HEIGHT} frame")
+
+
+def drive(torch, ops, det, items, expected):
+    """The main path of one detector: every launch count set to 0 just before
+    `det.predict(items)` and read just after; fails unless they equal `expected`.
+    Returns (peaks, seconds, launches)."""
+    for k in ops.ALL:
+        getattr(ops, k).launches = 0
+    t = time.time()
+    pos = det.predict(items)[0]
+    secs = time.time() - t
+    launches = {k: getattr(ops, k).launches for k in ops.ALL}
+    want = {k: expected.get(k, 0) for k in ops.ALL}
+    if launches != want:
+        raise AssertionError(f"main path launches {launches}, expected {want}")
+    return pos, secs, launches
+
+
+def chunk_images(torch, items):
+    """The first chunk of `items` (tuples of frames) as one (chunk, H, W, 3 * n) uint8
+    tensor on the card, the channels concatenated as `predict` does."""
+    import numpy as np
+
+    chunk = [it if isinstance(it, tuple) else (it,) for it in items[:HR_CHUNK]]
+    return torch.cat([torch.from_numpy(np.stack([it[k] for it in chunk])).to(DEVICE)
+                      for k in range(len(chunk[0]))], dim=-1)
+
+
+def merge_partners(torch, plan):
+    """Per source token (B, N): the index of the B token it merges into, or -1 where it
+    keeps a slot of its own (every B token, and every A token that does not merge).
+    Unlike `plan.dst`, this does not shift the slots of the later unmerged A tokens when
+    one A token merges on one path and not on the other."""
+    N = plan.dst.shape[1]
+    base = plan.n_merged - N // 2  # the unmerged A tokens' slots come first
+    partner = torch.where(plan.dst >= base, plan.dst - base, -1)
+    partner[:, 1::2] = -1
+    return partner
+
+
+def tie_decided(torch, plan, val, idx, last):
+    """(B, N) bool: the A tokens whose merge a tie decides, from the matching's row max
+    `val`, first argmax `idx` and last argmax `last` (B, |A|): a merged token whose row
+    max is reached at more than one B token, and every token whose max equals the r-th
+    largest where that value also continues past the cut (stable sort: index order)."""
+    B, N = plan.dst.shape
+    r = N - plan.n_merged
+    srt = val.sort(dim=-1, descending=True).values
+    at_cut = torch.zeros_like(val, dtype=torch.bool)
+    if 0 < r < val.shape[1]:
+        at_cut = (val == srt[:, r - 1:r]) & (srt[:, r - 1:r] == srt[:, r:r + 1])
+    merged = merge_partners(torch, plan)[:, 0::2] >= 0
+    out = torch.zeros(B, N, dtype=torch.bool, device=val.device)
+    out[:, 0::2] = at_cut | (merged & (idx != last))
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Set attributes of `module` inside a with block, and restore them after it."""
+    old = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
+
+
+def run_tome(torch, ops, frames, profile=False):
+    from upliftingtabletennis_torch.data.image_transforms import normalize_image
+    from upliftingtabletennis_torch.hub import ball_detection
+    from upliftingtabletennis_torch.models import segformer
+    from upliftingtabletennis_torch.ops import token_merge
+    from upliftingtabletennis_torch.ops.flash_attention import cross_attention_plain
+    from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
+
+    triples = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(N_FRAMES)]
+    det = ball_detection("segformerpp_b2", device=DEVICE, chunk=HR_CHUNK)
+    det.predict(triples[:HR_CHUNK])  # the same detector without ToMe: its peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    det.predict(triples)
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = segformer.SegFormerNet(1, 3, "b2", tome_ratio=TOME_RATIO)
+    model.load_state_dict(det.model.state_dict())
+    det.model = model.eval().to(DEVICE, det.dtype)  # bf16 on the card
+    det.predict(triples[:HR_CHUNK])  # warm-up
+    torch.cuda.synchronize()
+
+    n_chunks = N_FRAMES // HR_CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    pos, secs, launches = drive(torch, ops, det, triples, {
+        "flash_cross_attention": n_chunks * B2_PER_FORWARD,
+        "fused_ln_ffn": n_chunks * B2_PER_FORWARD})  # and no K1: every block is merged
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_peaks("tome", det, pos, N_FRAMES, (3,))
+    fps = N_FRAMES / secs
+    log("tome", frames=N_FRAMES, chunk=HR_CHUNK, ratio=TOME_RATIO, frames_per_s=f"{fps:.3f}",
+        predict_s=f"{secs:.3f}", launches=launches, peak_mem_gb=f"{peak_gb:.3f}",
+        peak_mem_gb_without_tome=f"{plain_peak_gb:.3f}")
+
+    # the checks: the ToMe model and a bf16 `kernels=False` copy on the first chunk's
+    # model input, with spies on the merge plan, on its row max/argmax and on K3
+    images = chunk_images(torch, triples)
+    MW, MH = det.resolution
+    x = normalize_image(resize_bilinear_down(images, MH, MW)).to(det.dtype)
+    del images
+    ref = segformer.SegFormerNet(1, 3, "b2", tome_ratio=TOME_RATIO, kernels=False)
+    ref.load_state_dict(model.state_dict())
+    ref.eval().to(DEVICE, det.dtype)
+    real_k3, real_plan = segformer.flash_cross_attention, segformer.bipartite_soft_matching
+    real_best = token_merge._best_match
+    flip_equal = []
+
+    def forward(net, replay=None, best=real_best, k3=real_k3, capture=None):
+        """(heatmaps (B, 1, h, w) f32, the net's merge plans, per plan the (B, N) tokens
+        whose merge a tie decides). replay: plans used in place of the net's own; best:
+        the matching's row max and argmax; capture: a list that receives K3's (q, k, v)."""
+        plans, tied, cur = [], [], {}
+
+        def best_spy(a, b, rows):
+            val, idx = best(a, b, rows)
+            val_rev, rev = real_best(a, b.flip(1), rows)  # the last argmax: not the first if tied
+            flip_equal.append(torch.equal(val_rev, val))  # the same products in another order
+            cur.update(val=val, idx=idx, last=b.shape[1] - 1 - rev)
+            return val, idx
+
+        def plan_spy(metric, r):
+            plan = replay[len(plans)] if replay is not None else real_plan(metric, r)
+            if replay is None:
+                tied.append(tie_decided(torch, plan, **cur))
+            plans.append(plan)
+            return plan
+
+        def k3_spy(q, k, v, scale=None):
+            if capture is not None:
+                capture.append((q, k, v))
+            return k3(q, k, v, scale)
+
+        with patched(token_merge, _best_match=best_spy), patched(
+                segformer, bipartite_soft_matching=plan_spy, flash_cross_attention=k3_spy):
+            heat = net(x)[0].permute(0, 3, 1, 2).float()
+        return heat, plans, tied
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def drop_chunk(t):  # keys 64..127 left out: a K3 that skips one chunk
+        return torch.cat([t[:, :64], t[:, 128:]], 1)
+
+    def far(a, b, rows):  # a wrong plan: every partner half of set B away from the best
+        val, idx = real_best(a, b, rows)
+        return val, (idx + b.shape[1] // 2) % b.shape[1]
+
+    def last(a, b, rows):  # ties broken the other way: the last argmax of each row
+        val, rev = real_best(a, b.flip(1), rows)
+        return val, b.shape[1] - 1 - rev
+
+    firsts = [sum(B2_STAGES[i][5] for i in range(s)) for s in range(4)]  # block 0 of each stage
+    calls = []
+    with torch.no_grad():
+        heat, plans, tied = forward(model, capture=calls)
+        # K3 held strictly: on the (q, k, v) it gets at the first block of each stage
+        strict = []
+        for i in firsts:
+            q, k, v = calls[i]
+            want = cross_attention_plain(q.float(), k.float(), v.float())
+            max_abs, worst, ok = k3_check(torch, real_k3(q, k, v), q, k, v, want)
+            # the same limit must reject a K3 that skips keys 64..127 on these tensors
+            skipped = cross_attention_plain(q.float(), drop_chunk(k).float(),
+                                            drop_chunk(v).float()).to(q.dtype)
+            strict.append(dict(Nq=q.shape[1], heads=q.shape[2], max_abs_err=max_abs,
+                               err_over_limit=worst, ok=ok,
+                               chunk_fault_over_limit=k3_check(torch, skipped, q, k, v, want)[1]))
+            del want, skipped
+        calls.clear()
+        heat_ref, plans_ref, tied_ref = forward(ref)  # the plain path with its own plans
+        same_err = rel(heat, forward(ref, replay=plans)[0])  # ... with the kernel path's
+        # planted faults in the kernel path, and how far each moves its heatmaps from the
+        # plain path's (with the plain path's own plans; for the K3 fault also with the
+        # faulty run's plans). A wrong plan must exceed TOME_HEAT_TOL. A K3 that skips
+        # a key chunk stays within the heatmap limits: the strict check above sees it.
+        fault_err = {"wrong_partner": rel(forward(model, best=far)[0], heat_ref),
+                     "last_argmax": rel(forward(model, best=last)[0], heat_ref)}
+        heat_drop, plans_drop, _ = forward(
+            model, k3=lambda q, k, v, scale=None: real_k3(q, drop_chunk(k), drop_chunk(v), scale))
+        fault_err["k3_chunk"] = rel(heat_drop, heat_ref)
+        fault_err["k3_chunk_same_plans"] = rel(heat_drop, forward(ref, replay=plans_drop)[0])
+        del heat_drop, plans_drop
+    heat_err = rel(heat, heat_ref)
+    differ = [merge_partners(torch, a) != merge_partners(torch, b) for a, b in zip(plans, plans_ref)]
+    share = [d.float().mean().item() for d in differ]
+    tie_share = [t.float().mean().item() for t in tied]
+    n_differ = sum(d.sum().item() for d in differ)
+    n_explained = sum((d & (t | u)).sum().item() for d, t, u in zip(differ, tied, tied_ref))
+    explained = n_explained / max(1, n_differ)
+    dst_share = sum(share) / len(share)
+    log("tome", k3_strict=json.dumps([{k: (round(v, 5) if isinstance(v, float) else v)
+                                       for k, v in e.items()} for e in strict]),
+        heat_rel_err=f"{heat_err:.4g}", heat_rel_err_same_plans=f"{same_err:.4g}",
+        heat_max_abs=f"{heat_ref.abs().max().item():.4g}",
+        fault_heat_rel_err=json.dumps({k: round(v, 5) for k, v in fault_err.items()}),
+        dst_differ_share=f"{dst_share:.5f}", differ_tie_decided_share=f"{explained:.5f}",
+        dst_differ_per_block=json.dumps([round(d, 5) for d in share]),
+        tie_decided_per_block=json.dumps([round(t, 5) for t in tie_share]),
+        flip_values_equal=all(flip_equal))
+    if not len(plans) == len(plans_ref) == TOME_PLANS_PER_FORWARD:
+        raise AssertionError(f"merge plans per forward: {len(plans)} (kernels), "
+                             f"{len(plans_ref)} (plain); expected {TOME_PLANS_PER_FORWARD}")
+    if not all(e["ok"] for e in strict):
+        raise AssertionError(f"K3 disagrees with its plain version on the model's tensors: "
+                             f"{strict}")
+    if not all(e["chunk_fault_over_limit"] > 1 for e in strict):
+        raise AssertionError(f"K3's limit does not reject a skipped key chunk on the model's "
+                             f"tensors: {strict}")
+    if not heat_err <= TOME_HEAT_TOL:
+        raise AssertionError(f"ToMe heatmaps of the kernel path differ from the bf16 plain "
+                             f"path: {heat_err} > {TOME_HEAT_TOL}")
+    if not same_err <= HEAT_TOL:
+        raise AssertionError(f"ToMe heatmaps of the kernel path differ from the bf16 plain "
+                             f"path on the same plans: {same_err} > {HEAT_TOL}")
+    if not fault_err["wrong_partner"] > TOME_HEAT_TOL:
+        raise AssertionError(f"a wrong merge plan passes TOME_HEAT_TOL: {fault_err}")
+    res = dict(frames_per_s=fps, predict_s=secs, launches=launches, peak_mem_gb=peak_gb,
+               peak_mem_gb_without_tome=plain_peak_gb, k3_strict=strict, heat_rel_err=heat_err,
+               heat_rel_err_same_plans=same_err, fault_heat_rel_err=fault_err,
+               dst_differ_share=dst_share, dst_differ_per_block=share,
+               differ_tie_decided_share=explained, tie_decided_per_block=tie_share,
+               flip_values_equal=all(flip_equal))
+    del ref, heat, heat_ref, x, plans, plans_ref, tied, tied_ref, differ
+    if profile:
+        res["profile"] = profile_calls(torch, lambda: det.predict(triples[:HR_CHUNK]),
+                                       "one warm b2 ToMe ball predict of 8 triplets")
+    del det, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_flip(torch, ops, frames):
+    from upliftingtabletennis_torch.hub import ball_detection
+
+    triples = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(N_FRAMES)]
+    det = ball_detection("segformerpp_b2", device=DEVICE, chunk=HR_CHUNK, flip_test=True)
+    det.predict(triples[:HR_CHUNK])  # warm-up
+    torch.cuda.synchronize()
+    n = 2 * (N_FRAMES // HR_CHUNK) * B2_PER_FORWARD  # two forwards per chunk
+    pos, secs, launches = drive(torch, ops, det, triples,
+                                {"fused_attention_block": n, "fused_ln_ffn": n})
+    check_peaks("flip", det, pos, N_FRAMES, (3,))
+    err = plain_heat_err(torch, det, chunk_images(torch, triples))
+    fps = N_FRAMES / secs
+    log("flip", frames=N_FRAMES, chunk=HR_CHUNK, frames_per_s=f"{fps:.3f}",
+        predict_s=f"{secs:.3f}", launches=launches, heat_rel_err=f"{err:.4g}")
+    if not err <= HEAT_TOL:
+        raise AssertionError(f"flip-test heatmaps of the kernel path differ from the f32 "
+                             f"plain path: {err} > {HEAT_TOL}")
+    del det
+    torch.cuda.empty_cache()
+    return dict(frames_per_s=fps, predict_s=secs, launches=launches, heat_rel_err=err)
+
+
+def run_b0(torch, ops, frames):
+    from upliftingtabletennis_torch.hub import table_detection
+
+    centres = [frames[t + 1] for t in range(N_FRAMES)]
+    det = table_detection("segformerpp_b0", device=DEVICE, chunk=HR_CHUNK)
+    det.predict(centres[:HR_CHUNK])  # warm-up
+    torch.cuda.synchronize()
+    n = (N_FRAMES // HR_CHUNK) * B0_PER_FORWARD
+    pos, secs, launches = drive(torch, ops, det, centres,
+                                {"fused_attention_block": n, "fused_ln_ffn": n})
+    check_peaks("b0", det, pos, N_FRAMES, (13, 3))
+    err = plain_heat_err(torch, det, chunk_images(torch, centres))
+    fps = N_FRAMES / secs
+    log("b0", model="segformerpp_b0 table", frames=N_FRAMES, chunk=HR_CHUNK,
+        frames_per_s=f"{fps:.3f}", predict_s=f"{secs:.3f}", launches=launches,
+        heat_rel_err=f"{err:.4g}")
+    if not err <= HEAT_TOL:
+        raise AssertionError(f"b0 table heatmaps of the kernel path differ from the f32 plain "
+                             f"path: {err} > {HEAT_TOL}")
+    del det
+    torch.cuda.empty_cache()
+    return dict(frames_per_s=fps, predict_s=secs, launches=launches, heat_rel_err=err)
 
 
 def profile_calls(torch, fn, label):
@@ -679,6 +1110,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    import upliftingtabletennis_torch.ops.flash_attention as k3
     import upliftingtabletennis_torch.ops.fused_attention as k1
     import upliftingtabletennis_torch.ops.fused_conv as k5
     import upliftingtabletennis_torch.ops.fused_ffn as k2
@@ -711,7 +1143,9 @@ def main() -> int:
         fused_ln_ffn = k2.fused_ln_ffn
         conv3x3_bias_act = k5.conv3x3_bias_act
         conv1x1_bias_act = k5.conv1x1_bias_act
-        ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act")
+        flash_cross_attention = k3.flash_cross_attention
+        ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act",
+               "flash_cross_attention")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen)
@@ -721,6 +1155,10 @@ def main() -> int:
     frames = synthetic_frames(N_FRAMES + 2)
     hrnet_res = run_hrnet(torch, frames)
     det_res = run_detectors(torch, Ops, frames, profile=opts.profile)
+    k3_entries = run_k3(torch, F, Ops, gen)
+    tome_res = run_tome(torch, Ops, frames, profile=opts.profile)
+    flip_res = run_flip(torch, Ops, frames)
+    b0_res = run_b0(torch, Ops, frames)
 
     # 9. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
@@ -728,7 +1166,7 @@ def main() -> int:
         raise AssertionError(f"imported {banned}")
     log("hygiene", jax_free=True)
 
-    def summary(name, source, replaces, entries):
+    def summary(name, source, replaces, entries, launches=None, per=None):
         staged = [e for e in entries if e["depth"]]
 
         def per_forward(key):  # summed over the blocks of one forward at chunk CHUNK
@@ -736,13 +1174,13 @@ def main() -> int:
 
         bytes_share = sum(e["bound_ms"] * e["depth"] for e in staged if e["bound_by"] == "bytes")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": slice_res["launches"][name],
+                "launches": slice_res["launches"][name] if launches is None else launches,
                 "max_abs_err": max(e["max_abs_err"] for e in entries),
                 "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
                 "bound_ms": per_forward("bound_ms"),
                 "bound_by": "bytes" if bytes_share * 2 > per_forward("bound_ms") else "operations",
                 "library_ms": per_forward("library_ms"),
-                "per": "one b2 forward at batch %d (sum over its 16 blocks)" % CHUNK,
+                "per": per or "one b2 forward at batch %d (sum over its 16 blocks)" % CHUNK,
                 "per_stage": entries}
 
     def k5_summary(name, replaces):
@@ -773,12 +1211,19 @@ def main() -> int:
                 "upliftingtabletennis_tpu/ops/fused_ffn.py:50", k2_entries),
         k5_summary("conv3x3_bias_act", "upliftingtabletennis_tpu/ops/fused_conv.py:70"),
         k5_summary("conv1x1_bias_act", "upliftingtabletennis_tpu/ops/fused_conv.py:98"),
+        summary("flash_cross_attention", "upliftingtabletennis_torch/ops/csrc/flash_attention.cu",
+                "upliftingtabletennis_tpu/ops/flash_attention.py:34", k3_entries,
+                launches=tome_res["launches"]["flash_cross_attention"],
+                per=f"one b2 ToMe forward at batch {HR_CHUNK}, 1600x896, ratio {TOME_RATIO} "
+                    f"(sum over its 16 blocks); launches over the tome phase's "
+                    f"{N_FRAMES // HR_CHUNK} forwards"),
     ]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
                        "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
+                       "tome": tome_res, "flip": flip_res, "b0": b0_res,
                        "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

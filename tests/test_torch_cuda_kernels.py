@@ -1,4 +1,4 @@
-"""K1, K2 and K5 CUDA kernels against their plain PyTorch versions on the card.
+"""K1, K2, K3 and K5 CUDA kernels against their plain PyTorch versions on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc and skip without them. They import
 only torch, so they run where JAX is absent:
@@ -7,13 +7,17 @@ only torch, so they run where JAX is absent:
 
 Shapes are small and ragged (N not a multiple of the 64-row tile, Nkv below one
 64-key chunk, head dim 32 as in b0, H and W not multiples of the FFN or conv tile;
-the stems' Ci = 3 and 9, the heads' Co = 3 and 13). The plain version runs in f32 on
-the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <= 6e-2 +
-2e-2 |plain| for K1 and K2, 1e-2 + 8e-3 |plain| for K5.
+every K2 width of b0 and b2; K3's Nq and Nkv not multiples of its 128-row and 64-key
+tiles; the stems' Ci = 3 and 9, the heads' Co = 3 and 13). The plain version runs in
+f32 on the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <=
+6e-2 + 2e-2 |plain| for K1 and K2, 1e-2 + 8e-3 |plain| for K5, and for K3 the bound
+of its bf16 roundings, 2^-8 (|plain| + softmax(q kᵀ) |v|) per element (`k3_limit`).
 """
 import pytest
 import torch
 
+from upliftingtabletennis_torch.ops.flash_attention import (cross_attention_plain,
+                                                            flash_cross_attention)
 from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plain,
                                                            fused_attention_block)
 from upliftingtabletennis_torch.ops.fused_conv import (conv1x1_bias_act, conv1x1_bias_act_plain,
@@ -24,6 +28,15 @@ from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn, ln_ffn_plain
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 6e-2, 2e-2
 K5_ATOL, K5_RTOL = 1e-2, 8e-3
+
+
+def k3_limit(q, k, v, want, scale=None):
+    """K3's limit per element, as in chip_smoke.py: the kernel rounds each probability
+    (relative error at most 2^-8, bf16's unit roundoff; its row sum stays f32) and its
+    output (2^-8 |out|) to bf16, so |kernel - plain| <= 2^-8 (softmax(q kᵀ) |v| + |out|)
+    to first order."""
+    return 2.0 ** -8 * (want.abs() + cross_attention_plain(q.float(), k.float(), v.float().abs(),
+                                                          scale))
 
 
 @pytest.fixture
@@ -55,7 +68,8 @@ def test_k1_kernel_matches_plain(gen, B, H, W, C, heads, Nkv):
 
 
 @pytest.mark.parametrize("B,H,W,C", [
-    (2, 9, 17, 64), (1, 10, 9, 128), (1, 5, 3, 320), (2, 6, 7, 512),
+    (2, 9, 17, 64), (1, 10, 9, 128), (1, 5, 3, 320), (2, 6, 7, 512), (2, 11, 13, 32),
+    (1, 7, 10, 160),
 ])
 def test_k2_kernel_matches_plain(gen, B, H, W, C):
     HID = 4 * C
@@ -69,6 +83,32 @@ def test_k2_kernel_matches_plain(gen, B, H, W, C):
     assert fused_ln_ffn.launches == before + 1
     want = ln_ffn_plain(x.float(), H, W, *[a.float() for a in args])
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+# (B, Nq, Nkv, heads, hd, scale): ragged Nq and Nkv, one key, one query, many chunks
+@pytest.mark.parametrize("B,Nq,Nkv,heads,hd,scale", [
+    (2, 100, 70, 2, 32, None), (1, 300, 1400, 1, 64, None), (2, 129, 65, 5, 64, 0.3),
+    (1, 64, 1, 8, 64, None), (1, 1, 130, 1, 32, None), (1, 257, 2040, 1, 32, None),
+])
+def test_k3_kernel_matches_plain(gen, B, Nq, Nkv, heads, hd, scale):
+    q, k, v = (_rnd(gen, B, n, heads, hd) for n in (Nq, Nkv, Nkv))
+    before = flash_cross_attention.launches
+    got = flash_cross_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_cross_attention.launches == before + 1
+    want = cross_attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (got.float() - want).abs()
+    limit = k3_limit(q, k, v, want, scale)
+    assert bool((err <= limit).all()), f"max err / limit {(err / limit).max().item():.3g}"
+
+
+def test_k3_rejects_float32_and_other_head_dims(gen):
+    q = torch.zeros(1, 8, 2, 32, device="cuda")
+    with pytest.raises(ValueError):
+        flash_cross_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_cross_attention(q, q, q)
 
 
 def _conv_case(gen, ks, B, H, W, Ci, Co, bias, res):

@@ -1,5 +1,7 @@
 """K2 of the port (plain PyTorch version, the CPU path of `fused_ln_ffn`) against the
-JAX Pallas kernel in interpret mode and against its pure-jnp reference `_ref_ln_ffn`.
+JAX Pallas kernel in interpret mode and against its pure-jnp reference `_ref_ln_ffn`,
+and against the two TPU layouts of the same function, `fused_ln_ffn_v2` and
+`fused_ln_ffn_v3`, in interpret mode (K2's kernel is their counterpart on the card).
 
 Same seeded numpy inputs; fp32; tolerance 2e-4 as in tests/test_fused_ffn.py.
 tile_h=4 with H=8 makes the JAX kernel run its cross-tile halo.
@@ -11,6 +13,7 @@ import torch
 
 from upliftingtabletennis_tpu.ops.fused_ffn import _ref_ln_ffn
 from upliftingtabletennis_tpu.ops.fused_ffn import fused_ln_ffn as jax_k2
+from upliftingtabletennis_tpu.ops.fused_ffn import fused_ln_ffn_v2, fused_ln_ffn_v3
 from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn
 
 torch.set_num_threads(1)
@@ -37,6 +40,18 @@ def test_k2_plain_matches_jax_kernel(B, H, W, C, tile_h):
     p = {k: v.astype(np.float32) for k, v in _params(rng, C, 4 * C).items()}
     want = jax_k2(jnp.asarray(x), H, W, *[jnp.asarray(p[n]) for n in ORDER], interpret=True,
                   tile_h=tile_h)
+    np.testing.assert_allclose(_port(x, H, W, p), np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+# tile_h=4 with H=8 or 12 runs the TPU layouts' cross-tile halo
+@pytest.mark.parametrize("variant", [fused_ln_ffn_v2, fused_ln_ffn_v3], ids=["v2", "v3"])
+@pytest.mark.parametrize("B,H,W,C,tile_h", [(2, 8, 12, 32, 4), (1, 12, 7, 16, 4)])
+def test_k2_plain_matches_jax_v2_v3_layouts(variant, B, H, W, C, tile_h):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(B, H * W, C)).astype(np.float32)
+    p = {k: v.astype(np.float32) for k, v in _params(rng, C, 4 * C).items()}
+    want = variant(jnp.asarray(x), H, W, *[jnp.asarray(p[n]) for n in ORDER], interpret=True,
+                   tile_h=tile_h)
     np.testing.assert_allclose(_port(x, H, W, p), np.asarray(want), atol=2e-4, rtol=2e-4)
 
 

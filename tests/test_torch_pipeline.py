@@ -9,9 +9,11 @@ import pytest
 import torch
 
 from upliftingtabletennis_tpu.data.image_transforms import normalize_image as jax_normalize
+from upliftingtabletennis_tpu.ops import heatmap_decode as jax_decode
 from upliftingtabletennis_tpu.ops.peak import extract_peaks as jax_extract_peaks
 from upliftingtabletennis_tpu.ops.resize import resize_bilinear_down as jax_resize
 from upliftingtabletennis_torch.data.image_transforms import normalize_image
+from upliftingtabletennis_torch.ops.heatmap_decode import flip_back
 from upliftingtabletennis_torch.ops.peak import extract_peaks
 from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
 from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
@@ -147,6 +149,47 @@ def test_detectors_match_jax_detectors(kind, name, channels, rel_tol):
     assert extra is None and pos.shape == jpos.shape and np.isfinite(pos).all()
     np.testing.assert_allclose(pos[..., :2], jpos[..., :2], atol=5e-2, rtol=0)
     np.testing.assert_array_equal(pos[..., 2], jpos[..., 2])
+
+
+@pytest.mark.parametrize("shift", [True, False])
+@pytest.mark.parametrize("flip_pairs", [(), ((0, 2), (1, 3))])
+def test_flip_back_matches_jax(flip_pairs, shift):
+    hm = np.random.default_rng(9).normal(size=(2, 5, 7, 4)).astype(np.float32)
+    got = flip_back(torch.from_numpy(hm), flip_pairs, shift).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_decode.flip_back(jnp.asarray(hm),
+                                                                       flip_pairs, shift)))
+
+
+def test_ball_detector_flip_test_matches_jax():
+    """`BallDetector(flip_test=True)` against the JAX detector's flip test: same converted
+    weights, same seeded 192x108 triplets, model input 96x64. Heatmaps: the JAX
+    `flip_test_heatmaps` on the same preprocessed input, 2e-5 of max (the model tests'
+    tolerance; the flip and the mean add no error in f32). Peaks: the port's predict
+    against the JAX peak fit on those heatmaps, within 0.05 px at 1920x1080."""
+    from upliftingtabletennis_tpu.pipeline.interface import BallDetector as JaxBallDetector
+
+    jdet = JaxBallDetector("segformerpp_b0", chunk=2, resolution=(96, 64), flip_test=True)
+    jdet._ensure_init(9)
+    det = BallDetector("segformerpp_b0", checkpoint=flax_to_torch(jax.device_get(jdet._variables)),
+                       chunk=2, resolution=(96, 64), device="cpu", flip_test=True)
+    assert det.flip_test
+
+    frames = np.random.default_rng(10).integers(0, 256, size=(5, 108, 192, 3), dtype=np.uint8)
+    items = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(3)]
+    images = np.stack([np.concatenate(t, -1) for t in items])
+    x = jax_normalize(jax_resize(jnp.asarray(images), 64, 96, exact=True))
+    apply = jax.jit(lambda t: jdet.model.apply(jdet._variables, t)[0])
+    want = np.moveaxis(np.asarray(jax_decode.flip_test_heatmaps(apply, x)), -1, 1)
+    got = det.heatmaps(torch.from_numpy(images)).numpy()
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    det.flip_test = False  # the mirrored pass changes the heatmaps
+    assert np.abs(det.heatmaps(torch.from_numpy(images)).numpy() - got).max() > 1e-3
+    det.flip_test = True
+
+    pos, extra = det.predict(items)  # 2 chunks, the second padded
+    jpos = np.asarray(jax_extract_peaks(jnp.asarray(want), 1920, 1080))[:, 0]
+    assert extra is None and pos.shape == jpos.shape == (3, 3) and np.isfinite(pos).all()
+    np.testing.assert_allclose(pos[..., :2], jpos[..., :2], atol=5e-2, rtol=0)
 
 
 def test_ball_detector_reads_head_style_from_checkpoint():

@@ -96,6 +96,36 @@ def test_unported_detectors_raise(name):
         get_detector(name, "ball")
 
 
-def test_token_merging_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegFormerNet(model_size="b0", tome_ratio=0.5)
+def _smooth_input():
+    """The smooth image of tests/test_token_merge.py: neighbouring tokens similar."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(3)
+    return ndi.gaussian_filter(rng.normal(size=(1, 64, 96, 9)), (0, 6, 6, 0)).astype(np.float32)
+
+
+# ToMe at ratio 0.4 (the ratio of tests/test_token_merge.py). The smooth input merges
+# in stage 1 only (N = 384); the random one at 128x192 in stages 1 and 2 (N = 1536, 384).
+# ToMe has no parameters, so `flax_to_torch` converts the same tree as without it.
+@pytest.mark.parametrize("head_style,classify", [("nvlabs", False), ("mmseg", True)])
+@pytest.mark.parametrize("inp", ["smooth", "random"])
+def test_segformer_tome_matches_flax(head_style, classify, inp):
+    kw = dict(model_size="b0", classify_invisible=classify, head_style=head_style,
+              tome_ratio=0.4)
+    flax_model = FlaxSegFormerNet(1, 3, **kw)
+    if inp == "smooth":
+        x = _smooth_input()
+    else:
+        x = np.random.default_rng(6).normal(size=(2, 128, 192, 9)).astype(np.float32)
+    variables = _perturbed_variables(flax_model, x.shape, seed=3)
+    _compare(flax_model, SegFormerNet(1, 3, **kw), variables, x)
+
+
+def test_segformer_tome_committed_table_checkpoint_matches_flax():
+    from upliftingtabletennis_tpu.utils.checkpoint import load_checkpoint
+
+    variables, _, info = load_checkpoint("artifacts/closed_loop/table_detector")
+    assert info["model"] == "segformerpp_b0" and info["task"] == "table"
+    flax_model = FlaxSegFormerNet(13, 1, "b0", tome_ratio=0.4)
+    x = np.random.default_rng(5).normal(size=(1, 128, 224, 3)).astype(np.float32)
+    _compare(flax_model, SegFormerNet(13, 1, "b0", tome_ratio=0.4), jax.device_get(variables), x)

@@ -19,7 +19,7 @@ DETECTOR_RESOLUTIONS = {
     "hrnet": (1280, 704),
 }
 
-_NOT_PORTED = {"vitpose": "ROADMAP queue 1, item 12 (models/vit.py)"}
+_NOT_PORTED = {"vitpose": "ROADMAP queue 1, item 1 (models/vit.py)"}
 
 
 def get_detector(name: str, task: str = "ball", in_frames: int = None,

@@ -10,11 +10,16 @@ Every MiTBlock runs the two fused half-blocks: K1 (`ops/fused_attention.py`)
 then K2 (`ops/fused_ffn.py`). The K/V side of the attention (sr-conv with
 flax "SAME" padding, its LayerNorm, the kv projection) stays torch ops, as
 it is XLA ops in the JAX model. `SegFormerNet(kernels=False)` calls the
-plain PyTorch versions of K1 and K2 on any device; it exists to compare the
-whole model with and without the kernels on the card.
+plain PyTorch versions of the kernels on any device; it exists to compare
+the whole model with and without the kernels on the card.
 
-Not ported in this slice: ToMe token merging (`tome_ratio > 0`) and the
-unfused-block kernels K3/K4 (ROADMAP queue 2).
+SegFormer++ token merging (`tome_ratio > 0`, the JAX model's unfused
+attention branch): in every block, y = LN1(x) gives the ToMe plan
+(`ops/token_merge.py`, where N >= 256), q is projected from the merged y,
+K3 (`ops/flash_attention.py`) attends to the block's k and v, and the
+output is projected, unmerged and added to x. The FFN half stays on K2, as
+in the JAX block. `proj` runs on the merged tokens before the unmerge: a
+per-token linear map commutes with the gather.
 """
 from __future__ import annotations
 
@@ -22,9 +27,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from upliftingtabletennis_torch.ops.flash_attention import (cross_attention_plain,
+                                                           flash_cross_attention)
 from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plain,
                                                            fused_attention_block)
 from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn, ln_ffn_plain
+from upliftingtabletennis_torch.ops.token_merge import (bipartite_soft_matching,
+                                                       merge_tokens, unmerge_tokens)
 
 # (ref: models/segformer.py:48-58 of the JAX package)
 CFG = {
@@ -51,8 +60,9 @@ def _layer_norm(x, norm: nn.LayerNorm):
 class EfficientAttention(nn.Module):
     """Parameters of the attention: q, kv, proj and (sr > 1) the sr-conv + LN.
 
-    Only the K/V side runs here (`kv`); q, the attention and proj run inside
-    K1 with these parameters."""
+    Without ToMe only the K/V side runs here (`kv_heads`); q, the attention
+    and proj run inside K1 with these parameters. With ToMe, `merged` runs
+    the rest of the attention around K3."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int):
         super().__init__()
@@ -80,6 +90,19 @@ class EfficientAttention(nn.Module):
         kv = self.kv(kv_in).reshape(B, -1, 2, self.num_heads, C // self.num_heads)
         return kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()
 
+    def merged(self, y, k, v, tome_ratio: float, kernels: bool):
+        """proj(attention(q(merge(y)), k, v)), unmerged: the attention branch of a
+        ToMe block, (B, N, C). Merging starts at N >= 256, as in the JAX model."""
+        B, N, C = y.shape
+        plan = None
+        if N >= 256:
+            plan = bipartite_soft_matching(y, int(N * tome_ratio))
+            y = merge_tokens(plan, y)
+        q = self.q(y).reshape(B, y.shape[1], self.num_heads, C // self.num_heads)
+        attend = flash_cross_attention if kernels else cross_attention_plain
+        o = self.proj(attend(q, k, v).reshape(B, -1, C))
+        return o if plan is None else unmerge_tokens(plan, o)
+
 
 class MixFFN(nn.Module):
     """Parameters of the FFN: fc1, the depthwise 3x3 dwconv, fc2 (run inside K2)."""
@@ -94,9 +117,9 @@ class MixFFN(nn.Module):
 
 class MiTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int,
-                 kernels: bool = True):
+                 kernels: bool = True, tome_ratio: float = 0.0):
         super().__init__()
-        self.kernels = kernels
+        self.kernels, self.tome_ratio = kernels, tome_ratio
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = EfficientAttention(dim, num_heads, sr_ratio)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -104,9 +127,12 @@ class MiTBlock(nn.Module):
 
     def forward(self, x, H: int, W: int):
         a, f = self.attn, self.ffn
-        k, v = a.kv_heads(_layer_norm(x, self.norm1), H, W)
         n1 = self.norm1
-        if self.kernels:
+        y = _layer_norm(x, n1)
+        k, v = a.kv_heads(y, H, W)
+        if self.tome_ratio > 0:
+            x = x + a.merged(y, k, v, self.tome_ratio, self.kernels)
+        elif self.kernels:
             x = fused_attention_block(x, H, W, a.num_heads, n1.weight, n1.bias, a.q.weight.t(),
                                       a.q.bias, k, v, a.proj.weight.t(), a.proj.bias, n1.eps)
         else:
@@ -122,7 +148,8 @@ class MiTBlock(nn.Module):
 class MiTBackbone(nn.Module):
     """Mix Transformer encoder: 4 stages at 1/4, 1/8, 1/16, 1/32 scale."""
 
-    def __init__(self, size: str = "b2", in_chans: int = 3, kernels: bool = True):
+    def __init__(self, size: str = "b2", in_chans: int = 3, kernels: bool = True,
+                 tome_ratio: float = 0.0):
         super().__init__()
         cfg = CFG[size]
         self.depths = cfg["depths"]
@@ -136,7 +163,8 @@ class MiTBackbone(nn.Module):
             self.add_module(f"patch_norm_{s}", nn.LayerNorm(dim, eps=LN_EPS))
             for b in range(cfg["depths"][s]):
                 self.add_module(f"stage{s}_block{b}",
-                                MiTBlock(dim, HEADS[s], SR_RATIOS[s], MLP_RATIOS[s], kernels))
+                                MiTBlock(dim, HEADS[s], SR_RATIOS[s], MLP_RATIOS[s], kernels,
+                                         tome_ratio))
             self.add_module(f"stage_norm_{s}", nn.LayerNorm(dim, eps=LN_EPS))
             prev = dim
 
@@ -242,19 +270,17 @@ class SegFormerNet(nn.Module):
 
     forward(x (B, H, W, 3*in_frames)) -> (heatmap (B, H/4, W/4, out), cls logits or None).
     head_style "nvlabs" (the framework's own training) or "mmseg" (ported
-    reference checkpoints). kernels=False runs the plain versions of K1/K2
-    (for comparisons only).
+    reference checkpoints). tome_ratio > 0: the share of query tokens ToMe
+    merges in every attention (no parameters of its own). kernels=False runs
+    the plain versions of the kernels (for comparisons only).
     """
 
     def __init__(self, out_channels: int = 1, in_frames: int = 3, model_size: str = "b2",
                  classify_invisible: bool = False, tome_ratio: float = 0.0,
                  head_style: str = "nvlabs", decoder_dim: int = 0, kernels: bool = True):
         super().__init__()
-        if tome_ratio > 0:
-            raise NotImplementedError(
-                "ToMe token merging (tome_ratio > 0) is not ported yet (ROADMAP queue 1, item 12)")
         dims = CFG[model_size]["dims"]
-        self.backbone = MiTBackbone(model_size, 3 * in_frames, kernels)
+        self.backbone = MiTBackbone(model_size, 3 * in_frames, kernels, tome_ratio)
         head_cls = {"nvlabs": SegFormerHead, "mmseg": MMSegHead}[head_style]
         self.decode_head = head_cls(dims, out_channels,
                                     decoder_dim or CFG[model_size]["decoder_dim"])

@@ -19,9 +19,14 @@ runs, benchmarks).
 The dual-model filters are `BallDetector.filter_trajectory` and
 `TableDetector.filter_trajectory` (`pipeline/filters.py`).
 
-Not ported yet: `flip_test`, the slab/rolling-window paths,
+`BallDetector(flip_test=True)` averages each forward with a forward on the
+horizontally mirrored input (`ops/heatmap_decode.py`), as the JAX detector
+does; the table detector takes no flip test (mirroring swaps keypoint
+identities).
+
+Not ported yet: the slab/rolling-window paths,
 `TableDetector.calibrate_camera` and the rest of the pipeline (ROADMAP queue 1,
-items 6 and 7).
+items 4 and 5).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 from upliftingtabletennis_torch._device import resolve_device
 from upliftingtabletennis_torch.data.image_transforms import normalize_image
 from upliftingtabletennis_torch.models.factory import get_detector
+from upliftingtabletennis_torch.ops.heatmap_decode import flip_test_heatmaps
 from upliftingtabletennis_torch.ops.peak import extract_peaks
 from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
 from upliftingtabletennis_torch.pipeline import filters
@@ -76,10 +82,11 @@ class _Detector:
     def __init__(self, model_name: str, task: str,
                  checkpoint: Union[None, str, Mapping[str, torch.Tensor]] = None,
                  chunk: int = 16, threshold: float = -np.inf, resolution=None,
-                 device="cuda"):
+                 device="cuda", flip_test: bool = False):
         self.device = resolve_device(device)
         self.model_name, self.task, self.chunk = model_name, task, int(chunk)
         self.threshold = float(threshold)
+        self.flip_test = bool(flip_test)
         # bf16 on the card (the kernels' type, as the JAX path is bf16 on the TPU)
         self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         state = None
@@ -107,9 +114,14 @@ class _Detector:
             x = resize_bilinear_down(images, MH, MW)
         else:
             x = images.float()
-        out = self.model(normalize_image(x).to(self.dtype))
-        heat = out[0] if isinstance(out, tuple) else out  # TableHRNet returns the heatmap
+        x = normalize_image(x).to(self.dtype)
+        heat = flip_test_heatmaps(self._forward, x) if self.flip_test else self._forward(x)
         return heat.permute(0, 3, 1, 2).float()
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Model input (B, H, W, C_in) -> heatmap (B, h, w, C_out), NHWC."""
+        out = self.model(x)
+        return out[0] if isinstance(out, tuple) else out  # TableHRNet returns the heatmap
 
     def _predict_frames(self, items: Sequence[Sequence[np.ndarray]]) -> np.ndarray:
         """items: T tuples of (H, W, 3) images whose channels are concatenated
@@ -141,12 +153,14 @@ class _Detector:
 
 
 class BallDetector(_Detector):
-    """Ball detection on 3-frame triplets (prev, cur, next): SegFormer b0/b2 or WASB."""
+    """Ball detection on 3-frame triplets (prev, cur, next): SegFormer b0/b2 or WASB.
+
+    flip_test: average each forward with one on the mirrored triplets."""
 
     def __init__(self, model_name: str = "segformerpp_b2", checkpoint=None, chunk: int = 16,
-                 resolution=None, device="cuda"):
+                 resolution=None, device="cuda", flip_test: bool = False):
         super().__init__(model_name, "ball", checkpoint, chunk, threshold=-np.inf,
-                         resolution=resolution, device=device)
+                         resolution=resolution, device=device, flip_test=flip_test)
 
     def predict(self, image_triples: Sequence):
         """image_triples: sequence of (prev, cur, next) RGB arrays (H, W, 3).
