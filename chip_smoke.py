@@ -54,7 +54,21 @@ Phases (each prints one line with what it measured and the seconds elapsed):
 12. b0      `table_detection("segformerpp_b0", chunk=8)` on the centre frames (K2 at
             b0's widths 32 and 160 on the main path): launches, frames/s, heatmaps against
             a `kernels=False` f32 copy;
-13. hygiene  neither JAX nor the JAX package was imported.
+13. k6      K6 (box NMS, `ops/nms.py`): `nms(dets, thresh)` through the public entry
+            point on seeded boxes (N in 1 ... 4096, thresh 0.3, 0.5, 0.7) and on a planted
+            set (IoU exactly at each threshold, identical boxes, tied scores, boxes that
+            overlap nothing), with the launch counts reset just before and read just
+            after (2 per call); the kernel's suppression words against the plain version's
+            bit for bit and the keep lists equal; a planted fault (`>` in place of `>=`)
+            that the check must see; kernel and plain times per call at N = 400 and 4096,
+            the bound;
+14. vitpose `hub.ball_detection("vitpose")` on the triplets and `hub.table_detection("vitpose")`
+            on the centre frames at chunk 8, 1152x640: peak device memory and no port
+            kernel launched on the 16 frames; frames/s as the median and range of 5 warm
+            calls over 64 frames each; heatmaps against a `kernels=False` f32 copy (einsum attention);
+            `keypoints_from_heatmaps` (default and unbiased) on the table heatmaps against
+            the same call on their CPU copy;
+15. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -144,6 +158,23 @@ TOME_HEAT_TOL = 1e-1
 # (the kernels' roundings) gave 1.2e-2 (WASB) and 2.4e-2 (table) at 176x320, and the
 # maximum over 8 x 704 x 1280 pixels is larger than over 2 x 176 x 320.
 HRNET_HEAT_TOL = 8e-2
+# ViTPose (no port kernel: SDPA, cuBLAS linears and cuDNN deconvolutions in bf16) against
+# its f32 copy: 12 pre-LN blocks each round their residual stream to bf16 (2^-9 relative),
+# as SegFormer's 16 blocks do
+VIT_HEAT_TOL = 5e-2
+# keypoints_from_heatmaps on the card against the same call on the CPU copy of the
+# heatmaps: the argmax and the quarter shift are exact; DARK's blur sums in another order
+KP_TOL_PX = 1e-3
+
+K6_SIZES = (1, 13, 64, 65, 130, 400, 1000, 4096)
+K6_THRESHOLDS = (0.3, 0.5, 0.7)
+K6_TIMED = (400, 4096)  # N of the timed calls, at thresh 0.5
+K6_FLOPS_PER_PAIR = 20  # max, min, sub, add, mul, div, compare over one pair of boxes
+VIT_RES = (1152, 640)  # ViTPose's native (W, H)
+# ViTPose's frames/s: the median (and the range) of this many warm predict calls, each
+# over VIT_RATE_ITEMS times the phase's 16 frames (8 chunks, about half a second): one
+# call of 2 chunks lasts 0.1 s, too short a window for the host's clock on a shared host
+VIT_RATE_CALLS, VIT_RATE_ITEMS = 5, 4
 
 
 def log(phase: str, **kv) -> None:
@@ -411,6 +442,118 @@ def run_k3(torch, F, ops, gen):
     return entries
 
 
+def k6_bound(n):
+    """(ms, bound_by) for one nms_mask call: dets (N, 5) f32 read once, the suppression
+    words (N x ceil(N / 64) uint64, about N^2 / 8 bytes) and the keep mask written once;
+    K6_FLOPS_PER_PAIR f32 operations on each of the N (N - 1) / 2 pairs."""
+    nbytes = 20 * n + 8 * n * (-(-n // 64)) + n
+    flops = K6_FLOPS_PER_PAIR * n * (n - 1) / 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nms_dets(n, seed):
+    """(n, 5) f32 boxes as tests/test_nms.py makes them: x1, y1 uniform over 800 x 500,
+    sides 10-200, scores uniform in [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x1, y1 = rng.uniform(0, 800, n), rng.uniform(0, 500, n)
+    w, h, s = rng.uniform(10, 200, n), rng.uniform(10, 200, n), rng.uniform(0, 1, n)
+    return np.stack([x1, y1, x1 + w, y1 + h, s], -1).astype(np.float32)
+
+
+def planted_dets():
+    """Boxes whose decisions ties and exact roundings make: IoU exactly 0.5, 0.3 and 0.7
+    in f32 (one pair each, the last pair tied in score), identical boxes with tied
+    scores, tied boxes that overlap nothing."""
+    import numpy as np
+
+    return np.array([
+        [0, 0, 9, 9, 0.9], [0, 0, 9, 4, 0.8], [100, 0, 109, 9, 0.9], [100, 0, 109, 2, 0.7],
+        [200, 0, 209, 9, 0.6], [200, 0, 209, 6, 0.6], [300, 300, 350, 350, 0.5],
+        [300, 300, 350, 350, 0.5], [300, 300, 350, 350, 0.4], [500, 500, 510, 510, 0.5],
+        [600, 600, 610, 610, 0.5], [700, 0, 720, 20, 0.5]], np.float32)
+
+
+def run_k6(torch, ops):
+    import numpy as np
+
+    from upliftingtabletennis_torch.ops import nms as k6
+
+    cases = [(f"n{n}", nms_dets(n, seed=n)) for n in K6_SIZES] + [("planted", planted_dets())]
+    # the main path: the public entry point on every case and threshold
+    for k in ops.ALL:
+        getattr(ops, k).launches = 0
+    kept = {(name, t): k6.nms(d, t, device=DEVICE) for name, d in cases for t in K6_THRESHOLDS}
+    launches = {k: getattr(ops, k).launches for k in ops.ALL}
+    want = {k: 0 for k in ops.ALL}
+    want.update(overlap_words=len(kept), resolve_words=len(kept))
+    if launches != want:
+        raise AssertionError(f"k6 main path launches {launches}, expected {want}")
+
+    def keep_list(keep, dets):  # the `nms` contract: kept indices by descending score
+        idx = np.nonzero(keep.cpu().numpy())[0]
+        return idx[np.argsort(-dets[idx, 4], kind="stable")].tolist()
+
+    bad_bits, bad_keep, fault_bits, per_case = 0, [], {}, []
+    for name, d in cases:
+        dets = torch.from_numpy(d).to(DEVICE)
+        order = k6.score_order(dets)
+        boxes = dets[order, :4].contiguous()
+        n = len(d)
+        for t in K6_THRESHOLDS:
+            words = k6.overlap_words(boxes, t)
+            plain = k6.overlap_words_plain(boxes, t)
+            diff = int(k6.unpack_words(words ^ plain, n).sum().item())
+            keep = k6.resolve_words(words, order)
+            keep_plain = k6.resolve_plain(plain, order)
+            lists = {"main_path": kept[(name, t)], "kernel": keep_list(keep, d),
+                     "plain": keep_list(keep_plain, d), "cpu": k6.nms(d, t, device="cpu")}
+            bad_bits += diff
+            if any(v != lists["plain"] for v in lists.values()):
+                bad_keep.append((name, t))
+            if name == "planted":  # the planted fault: `>` in place of `>=`
+                over = k6.pair_iou_plain(boxes) > torch.tensor(t, dtype=torch.float32)
+                over &= torch.ones(n, n, dtype=torch.bool, device=DEVICE).triu(1)
+                fault_bits[t] = int(k6.unpack_words(k6.pack_words(over) ^ words, n).sum().item())
+            per_case.append(dict(case=name, n=n, thresh=t, differing_bits=diff,
+                                 kept=len(lists["plain"])))
+    torch.cuda.synchronize()
+
+    timed = []
+    for n in K6_TIMED:
+        d = nms_dets(n, seed=n)
+        dets = torch.from_numpy(d).to(DEVICE)
+        order = k6.score_order(dets)
+        boxes = dets[order, :4].contiguous()
+        words = k6.overlap_words(boxes, 0.5)
+        ms = time_ms(torch, lambda: k6.resolve_words(k6.overlap_words(boxes, 0.5), order))
+        overlap_ms = time_ms(torch, lambda: k6.overlap_words(boxes, 0.5))
+        resolve_ms = time_ms(torch, lambda: k6.resolve_words(words, order))
+        call_ms = time_ms(torch, lambda: k6.nms_mask(dets, 0.5))
+        plain_ms = time_ms(torch, lambda: k6.resolve_plain(k6.overlap_words_plain(boxes, 0.5),
+                                                           order), iters=3, warmup=1)
+        bound_ms, bound_by = k6_bound(n)
+        e = dict(n=n, thresh=0.5, ms=ms, overlap_ms=overlap_ms, resolve_ms=resolve_ms,
+                 nms_mask_call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, launches_per_call=2)
+        log("k6", n=n, ms=f"{ms:.4f}", overlap_ms=f"{overlap_ms:.4f}",
+            resolve_ms=f"{resolve_ms:.4f}", nms_mask_call_ms=f"{call_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+        timed.append(e)
+    log("k6", calls=len(kept), launches=launches, differing_bits=bad_bits,
+        keep_lists_differ=len(bad_keep), planted_fault_bits=json.dumps(fault_bits))
+    if bad_bits or bad_keep:
+        raise AssertionError(f"K6 disagrees with its plain version: {bad_bits} bits differ, "
+                             f"keep lists differ at {bad_keep}")
+    if not all(fault_bits.get(t, 0) > 0 for t in K6_THRESHOLDS):
+        raise AssertionError(f"the check does not see a `>` in place of `>=`: {fault_bits}")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, calls=len(kept), differing_bits=bad_bits,
+                planted_fault_bits=fault_bits, cases=per_case, timed=timed)
+
+
 def run_slice(torch, ops, profile=False):
     import numpy as np
 
@@ -653,7 +796,7 @@ def plain_heat_err(torch, det, images):
 
     from upliftingtabletennis_torch.ops.heatmap_decode import flip_test_heatmaps
 
-    ref, _ = get_detector(det.model_name, det.task, kernels=False)
+    ref, _ = get_detector(det.model_name, det.task, kernels=False, resolution=det.resolution)
     ref.load_state_dict(det.model.state_dict())
     ref.eval().to(DEVICE, torch.float32)
     MW, MH = det.resolution
@@ -701,11 +844,11 @@ def run_detectors(torch, ops, frames, profile=False):
     launches = {k: getattr(ops, k).launches for k in ops.ALL}
 
     n_chunks = N_FRAMES // HR_CHUNK
-    expected = {"fused_attention_block": 2 * n_chunks * B2_PER_FORWARD,
-                "fused_ln_ffn": 2 * n_chunks * B2_PER_FORWARD,
-                "conv3x3_bias_act": 2 * n_chunks * K5A_PER_FORWARD,
-                "conv1x1_bias_act": 2 * n_chunks * K5B_PER_FORWARD,
-                "flash_cross_attention": 0}
+    expected = {k: 0 for k in ops.ALL}
+    expected.update({"fused_attention_block": 2 * n_chunks * B2_PER_FORWARD,
+                     "fused_ln_ffn": 2 * n_chunks * B2_PER_FORWARD,
+                     "conv3x3_bias_act": 2 * n_chunks * K5A_PER_FORWARD,
+                     "conv1x1_bias_act": 2 * n_chunks * K5B_PER_FORWARD})
     for name, p in out.items():
         check_peaks(name, dets[name][0], p, N_FRAMES, (3,) if name.endswith("ball") else (13, 3),
                     stride=4 if name.startswith("segformer") else 1)
@@ -1054,7 +1197,73 @@ def run_b0(torch, ops, frames):
     return dict(frames_per_s=fps, predict_s=secs, launches=launches, heat_rel_err=err)
 
 
-def profile_calls(torch, fn, label):
+def run_vitpose(torch, ops, frames, profile=False):
+    from upliftingtabletennis_torch.hub import ball_detection, table_detection
+    from upliftingtabletennis_torch.ops.heatmap_decode import keypoints_from_heatmaps
+
+    triples = [(frames[t], frames[t + 1], frames[t + 2]) for t in range(N_FRAMES)]
+    centres = [frames[t + 1] for t in range(N_FRAMES)]
+    dets = {"vitpose_ball": (ball_detection("vitpose", device=DEVICE, chunk=HR_CHUNK), triples,
+                             (3,)),
+            "vitpose_table": (table_detection("vitpose", device=DEVICE, chunk=HR_CHUNK), centres,
+                              (13, 3))}
+    res = {}
+    for name, (det, items, per_frame) in dets.items():
+        if det.resolution != VIT_RES:
+            raise AssertionError(f"{name}: resolution {det.resolution}, expected {VIT_RES}")
+        det.predict(items[:HR_CHUNK])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pos, secs, launches = drive(torch, ops, det, items, {})  # no port kernel on this path
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check_peaks(name, det, pos, N_FRAMES, per_frame)
+        rates = []
+        for _ in range(VIT_RATE_CALLS):  # predict returns numpy peaks: it waits for the card
+            t = time.time()
+            det.predict(items * VIT_RATE_ITEMS)
+            rates.append(N_FRAMES * VIT_RATE_ITEMS / (time.time() - t))
+        fps = statistics.median(rates)
+        images = chunk_images(torch, items)
+        err = plain_heat_err(torch, det, images)
+        r = dict(frames_per_s=fps, frames_per_s_range=[min(rates), max(rates)],
+                 frames_per_s_calls=rates, predict_s=secs, launches=launches,
+                 peak_mem_gb=peak_gb, heat_rel_err=err)
+        if name == "vitpose_table":  # the decoder on the card against its CPU copy
+            with torch.no_grad():
+                heat = det.heatmaps(images)
+            r["keypoints_max_px_err"] = {}
+            for mode in ("default", "unbiased"):
+                c, m = keypoints_from_heatmaps(heat, mode)
+                c_cpu, m_cpu = keypoints_from_heatmaps(heat.cpu(), mode)
+                r["keypoints_max_px_err"][mode] = (c.cpu() - c_cpu).abs().max().item()
+                if not (torch.equal(m.cpu(), m_cpu) and r["keypoints_max_px_err"][mode] <= KP_TOL_PX):
+                    raise AssertionError(f"keypoints_from_heatmaps ({mode}) on the card differs "
+                                         f"from its CPU copy: {r['keypoints_max_px_err']}")
+            del heat
+        log("vitpose", model=name, frames=N_FRAMES, chunk=HR_CHUNK, frames_per_s=f"{fps:.3f}",
+            frames_per_s_range=f"{min(rates):.3f}-{max(rates):.3f}",
+            frames_per_s_of=f"median of {VIT_RATE_CALLS} calls x {N_FRAMES * VIT_RATE_ITEMS} "
+                            "frames", predict_s=f"{secs:.3f}", launches=launches, peak_mem_gb=f"{peak_gb:.3f}",
+            heat_rel_err=f"{err:.4g}", **({"keypoints_max_px_err": json.dumps(
+                r["keypoints_max_px_err"])} if "keypoints_max_px_err" in r else {}))
+        if not err <= VIT_HEAT_TOL:
+            raise AssertionError(f"{name}: heatmaps of the bf16 path differ from the f32 copy: "
+                                 f"{err} > {VIT_HEAT_TOL}")
+        if profile:
+            r["profile"] = profile_calls(
+                torch, lambda: det.predict(items[:HR_CHUNK]),
+                f"one warm {name} predict of one chunk of 8",
+                categories={"sdpa": "aten::scaled_dot_product_attention",
+                            "linears": "aten::linear",
+                            "deconvolutions": "aten::conv_transpose2d"})
+        res[name] = r
+        del det, images
+        dets[name] = None
+        torch.cuda.empty_cache()
+    return res
+
+
+def profile_calls(torch, fn, label, categories=None):
     """Device time by kernel over one warm call of `fn` (torch.profiler), the idle share,
     and the Python lines that make the host wait for the card."""
     from torch.profiler import ProfilerActivity, profile
@@ -1085,6 +1294,15 @@ def profile_calls(torch, fn, label):
     where = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
                                 if "synchroniz" in str(w.message))
     res["host_syncs"] = dict(where)
+    if categories:  # device time of the kernels each top-level op launched, over busy
+        total = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CPU}
+        res["category_ms"] = {c: total.get(op, 0.0) for c, op in categories.items()}
+        res["category_share"] = {c: ms / busy_ms for c, ms in res["category_ms"].items()}
+        log("profile", category_ms=json.dumps({c: round(v, 3) for c, v in
+                                               res["category_ms"].items()}),
+            category_share=json.dumps({c: round(v, 4) for c, v in
+                                       res["category_share"].items()}))
     log("profile", what=json.dumps(label), wall_ms=f"{wall_ms:.1f}",
         device_busy_ms=f"{busy_ms:.1f}", idle_share=f"{res['idle_share']:.3f}",
         host_syncs=json.dumps(dict(where)))
@@ -1094,6 +1312,24 @@ def profile_calls(torch, fn, label):
     for r in res["host_top"]:
         print(f"  {r['self_ms']:9.3f} ms  x{r['count']:<4d} {r['op'][:100]}", flush=True)
     return res
+
+
+def k6_summary(k6_res):
+    """The kernels-line entry of K6: one nms_mask call at the largest timed N."""
+    head = max(k6_res["timed"], key=lambda e: e["n"])
+    return {"name": "nms_mask", "route": "cuda",
+            "source": "upliftingtabletennis_torch/ops/csrc/nms.cu",
+            "replaces": "upliftingtabletennis_tpu/ops/nms.py:39",
+            "launches": k6_res["launches"]["overlap_words"] + k6_res["launches"]["resolve_words"],
+            "max_abs_err": k6_res["differing_bits"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes greedy NMS (torchvision is not "
+                            "installed)",
+            "per": f"one nms_mask call at N = {head['n']}, thresh 0.5: its 2 launches "
+                   f"(mask, resolve); max_abs_err counts differing bits; launches over the k6 "
+                   f"phase's {k6_res['calls']} nms calls",
+            "per_size": k6_res["timed"]}
 
 
 def main() -> int:
@@ -1114,6 +1350,7 @@ def main() -> int:
     import upliftingtabletennis_torch.ops.fused_attention as k1
     import upliftingtabletennis_torch.ops.fused_conv as k5
     import upliftingtabletennis_torch.ops.fused_ffn as k2
+    import upliftingtabletennis_torch.ops.nms as k6
     from upliftingtabletennis_torch.ops import _build
 
     # the f32 references run in full f32 (no TF32 in matmuls or cuDNN convolutions)
@@ -1144,8 +1381,10 @@ def main() -> int:
         conv3x3_bias_act = k5.conv3x3_bias_act
         conv1x1_bias_act = k5.conv1x1_bias_act
         flash_cross_attention = k3.flash_cross_attention
+        overlap_words = k6.overlap_words  # K6's two kernels: 2 launches per nms_mask call
+        resolve_words = k6.resolve_words
         ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act",
-               "flash_cross_attention")
+               "flash_cross_attention", "overlap_words", "resolve_words")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen)
@@ -1159,8 +1398,10 @@ def main() -> int:
     tome_res = run_tome(torch, Ops, frames, profile=opts.profile)
     flip_res = run_flip(torch, Ops, frames)
     b0_res = run_b0(torch, Ops, frames)
+    k6_res = run_k6(torch, Ops)
+    vit_res = run_vitpose(torch, Ops, frames, profile=opts.profile)
 
-    # 9. hygiene
+    # 15. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -1217,14 +1458,15 @@ def main() -> int:
                 per=f"one b2 ToMe forward at batch {HR_CHUNK}, 1600x896, ratio {TOME_RATIO} "
                     f"(sum over its 16 blocks); launches over the tome phase's "
                     f"{N_FRAMES // HR_CHUNK} forwards"),
+        k6_summary(k6_res),
     ]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
                        "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
-                       "tome": tome_res, "flip": flip_res, "b0": b0_res,
-                       "total_s": total}, f, indent=1)
+                       "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
+                       "vitpose": vit_res, "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K5 CUDA kernels against their plain PyTorch versions on the card.
+"""K1, K2, K3, K5 and K6 CUDA kernels against their plain PyTorch versions on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc and skip without them. They import
 only torch, so they run where JAX is absent:
@@ -12,6 +12,9 @@ tiles; the stems' Ci = 3 and 9, the heads' Co = 3 and 13). The plain version run
 f32 on the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <=
 6e-2 + 2e-2 |plain| for K1 and K2, 1e-2 + 8e-3 |plain| for K5, and for K3 the bound
 of its bf16 roundings, 2^-8 (|plain| + softmax(q kᵀ) |v|) per element (`k3_limit`).
+K6 (box NMS) is exact: its suppression words equal the plain version's bit for bit
+and its keep mask the plain resolve's, at ragged N (one box, N around the 64-box
+word) and on boxes where ties and exact roundings decide.
 """
 import pytest
 import torch
@@ -24,6 +27,7 @@ from upliftingtabletennis_torch.ops.fused_conv import (conv1x1_bias_act, conv1x1
                                                       conv3x3_bias_act, conv3x3_bias_act_plain,
                                                       pack)
 from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn, ln_ffn_plain
+from upliftingtabletennis_torch.ops import nms as k6
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 6e-2, 2e-2
@@ -185,3 +189,71 @@ def test_k2_rejects_width_without_instantiation(gen):
     z = lambda *s: torch.zeros(*s, device="cuda", dtype=torch.bfloat16)  # noqa: E731
     with pytest.raises(ValueError, match="instantiation"):
         fused_ln_ffn(x, 2, 2, z(C), z(C), z(C, HID), z(HID), z(3, 3, HID), z(HID), z(HID, C), z(C))
+
+
+def _nms_dets(gen, n):
+    """Seeded boxes as tests/test_nms.py makes them: (n, 5) f32 (x1, y1, x2, y2, score)."""
+    u = torch.rand(n, 5, generator=gen, device="cuda")
+    x1, y1 = 800 * u[:, 0], 500 * u[:, 1]
+    w, h = 10 + 190 * u[:, 2], 10 + 190 * u[:, 3]
+    return torch.stack([x1, y1, x1 + w, y1 + h, u[:, 4]], 1)
+
+
+def _planted_dets():
+    """IoU exactly 0.5, 0.3 and 0.7 in f32, identical boxes, tied scores, no overlap."""
+    return torch.tensor([
+        [0, 0, 9, 9, 0.9], [0, 0, 9, 4, 0.8], [100, 0, 109, 9, 0.9], [100, 0, 109, 2, 0.7],
+        [200, 0, 209, 9, 0.6], [200, 0, 209, 6, 0.6], [300, 300, 350, 350, 0.5],
+        [300, 300, 350, 350, 0.5], [300, 300, 350, 350, 0.4], [500, 500, 510, 510, 0.5],
+        [600, 600, 610, 610, 0.5], [700, 0, 720, 20, 0.5]], device="cuda")
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, "planted"])
+@pytest.mark.parametrize("thresh", [0.3, 0.5, 0.7])
+def test_k6_kernel_matches_plain(gen, n, thresh):
+    dets = _planted_dets() if n == "planted" else _nms_dets(gen, n)
+    order = k6.score_order(dets)
+    boxes = dets[order, :4].contiguous()
+    before = (k6.overlap_words.launches, k6.resolve_words.launches)
+    words = k6.overlap_words(boxes, thresh)
+    keep = k6.resolve_words(words, order)
+    torch.cuda.synchronize()
+    assert (k6.overlap_words.launches, k6.resolve_words.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert torch.equal(words, k6.overlap_words_plain(boxes, thresh))
+    assert torch.equal(keep, k6.resolve_plain(words, order))
+    assert torch.equal(k6.nms_mask(dets, thresh), keep)
+    assert torch.equal(keep.cpu(), k6.nms_mask(dets.cpu(), thresh))
+
+
+def test_k6_rejects_bfloat16_boxes(gen):
+    dets = _nms_dets(gen, 10)
+    with pytest.raises(TypeError):
+        k6.nms_mask(dets.to(torch.bfloat16), 0.5)
+
+
+@pytest.mark.parametrize("n", [78_592, "max", "over"])
+def test_k6_resolve_limit(gen, n):
+    """The resolve's shared memory holds every N up to uttk_nms_max_boxes(): 78,592
+    boxes fill it to the last byte before the chunk of mask rows halves, the limit
+    itself takes one row per chunk, and one box more is refused. The boxes come in
+    identical pairs with tied scores on a grid where no pairs overlap, so the first
+    box of each pair is kept and row 2k holds the single bit 2k + 1."""
+    limit = k6._lib().uttk_nms_max_boxes()
+    if n == "over":
+        with pytest.raises(ValueError, match="at most"):
+            k6.overlap_words(torch.zeros(limit + 1, 4, device="cuda"), 0.5)
+        return
+    n = limit if n == "max" else n
+    p = torch.arange(n, device="cuda") // 2
+    x, y = (p % 512 * 20).float(), (p // 512 * 20).float()
+    dets = torch.stack([x, y, x + 9, y + 9, torch.ones_like(x)], 1)
+    order = k6.score_order(dets)
+    words = k6.overlap_words(dets[order, :4].contiguous(), 0.5)
+    keep = k6.resolve_words(words, order)
+    rows = torch.arange(0, n - 1, 2, device="cuda")
+    want = torch.zeros_like(words)
+    want[rows, (rows + 1) // 64] = 1 << ((rows + 1) % 64)
+    assert torch.equal(order, torch.arange(n, device="cuda"))
+    assert torch.equal(words, want)
+    assert torch.equal(keep, torch.arange(n, device="cuda") % 2 == 0)

@@ -90,12 +90,6 @@ def test_head_upsample_matches_jax_image_resize(factor):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["vitpose"])
-def test_unported_detectors_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_detector(name, "ball")
-
-
 def _smooth_input():
     """The smooth image of tests/test_token_merge.py: neighbouring tokens similar."""
     import scipy.ndimage as ndi

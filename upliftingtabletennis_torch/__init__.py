@@ -3,12 +3,12 @@
 The JAX package `upliftingtabletennis_tpu` is the reference; this package
 re-implements it module by module in PyTorch, with every Pallas kernel on
 the ported path replaced by a hand-written CUDA kernel for Hopper (sm_90a).
-It imports only torch, numpy and the standard library at runtime.
+It imports only torch, numpy, scipy and the standard library at runtime.
 
-Covered today: the four detectors of the main path and their filters:
-`BallDetector` (SegFormer b0/b2, WASB-HRNet; `hub.ball_detection`),
-`TableDetector` (SegFormer b0/b2, HRNet; `hub.table_detection`) and their
-`filter_trajectory` methods. Entry points run on CUDA by default and raise
+Covered today: the detectors and their filters: `BallDetector` (SegFormer
+b0/b2, ViTPose, WASB-HRNet; `hub.ball_detection`), `TableDetector` (SegFormer
+b0/b2, ViTPose, HRNet; `hub.table_detection`) and their `filter_trajectory`
+methods; and the pose ops (`ops.nms`, `ops.heatmap_decode`, `ops.ae_grouping`). Entry points run on CUDA by default and raise
 when CUDA is absent; pass ``device="cpu"`` for the plain PyTorch path the
 tests use.
 """

@@ -1,14 +1,14 @@
 """Detector factory and per-model native input resolutions.
 
-Port of `upliftingtabletennis_tpu/models/factory.py` for the models the port
-covers: SegFormer b0/b2 (ball and table), WASB (HRNet, ball only) and HRNet
-(table only). ViTPose is a later slice and raises NotImplementedError naming
-its ROADMAP item.
+Port of `upliftingtabletennis_tpu/models/factory.py`: SegFormer b0/b2 (ball
+and table), ViTPose (ball and table), WASB (HRNet, ball only) and HRNet
+(table only).
 """
 from __future__ import annotations
 
 from upliftingtabletennis_torch.models.hrnet import TableHRNet, WASBNet
 from upliftingtabletennis_torch.models.segformer import SegFormerNet
+from upliftingtabletennis_torch.models.vit import VitPoseNet
 
 # (W, H) native input resolutions (ref: models/factory.py:16 of the JAX package)
 DETECTOR_RESOLUTIONS = {
@@ -19,28 +19,32 @@ DETECTOR_RESOLUTIONS = {
     "hrnet": (1280, 704),
 }
 
-_NOT_PORTED = {"vitpose": "ROADMAP queue 1, item 1 (models/vit.py)"}
-
 
 def get_detector(name: str, task: str = "ball", in_frames: int = None,
                  classify_invisible: bool = False, head_style: str = "nvlabs",
-                 decoder_dim: int = 0, kernels: bool = True):
-    """Build a detector. Returns (model, (W, H) native resolution).
+                 decoder_dim: int = 0, kernels: bool = True, resolution=None):
+    """Build a detector. Returns (model, (W, H) input resolution).
 
     task 'ball': 3-frame input, 1 heatmap channel; 'table': 1 frame, 13 channels.
-    The SegFormer options (classify_invisible, head_style, decoder_dim) do not
-    apply to the HRNet models. kernels=False runs the plain versions of the
-    model's kernels (for comparisons only).
+    resolution: (W, H) in place of the model's native one; ViTPose is built for it
+    (its position embedding has one row per patch), at the "small" width, as the
+    JAX package's factory builds it. The SegFormer options (classify_invisible,
+    head_style, decoder_dim) apply to SegFormer only. kernels=False runs the
+    plain versions of the model's kernels, and ViTPose's attention in its einsum
+    form in place of `F.scaled_dot_product_attention` (for comparisons only).
     """
     if task not in ("ball", "table"):
         raise ValueError(f"unknown task {task!r}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"detector {name!r} is not ported yet: {_NOT_PORTED[name]}")
+    if name not in DETECTOR_RESOLUTIONS:
+        raise ValueError(f"unknown detector {name!r}")
+    res = tuple(resolution) if resolution is not None else DETECTOR_RESOLUTIONS[name]
     out_channels = 1 if task == "ball" else 13
     frames = in_frames if in_frames is not None else (3 if task == "ball" else 1)
     if name in ("segformerpp_b0", "segformerpp_b2"):
         model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
                              head_style=head_style, decoder_dim=decoder_dim, kernels=kernels)
+    elif name == "vitpose":
+        model = VitPoseNet(out_channels, frames, "small", res, sdpa=kernels)
     elif name == "wasb":
         if task != "ball":
             raise ValueError("wasb is a ball detector (task='ball')")
@@ -51,4 +55,4 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
         model = TableHRNet(13, kernels=kernels)
     else:
         raise ValueError(f"unknown detector {name!r}")
-    return model, DETECTOR_RESOLUTIONS[name]
+    return model, res

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_attention.cu", "fused_ffn.cu", "fused_conv.cu", "flash_attention.cu")
+SOURCES = ("fused_attention.cu", "fused_ffn.cu", "fused_conv.cu", "flash_attention.cu", "nms.cu")
 # No --use_fast_math: it would change expf and erff.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -6,9 +6,12 @@ repeating its last image): resize to the model resolution (cv2 half-pixel
 bilinear), ImageNet normalisation, bf16 on CUDA, the detector forward,
 then subpixel peaks scaled to the 1920x1080 working resolution.
 
-Models: SegFormer b0/b2 (ball and table), WASB (HRNet, ball) and HRNet
-(table). The HRNet models keep f32 weights and fold their BatchNorms once,
-at the first forward, into the working dtype.
+Models: SegFormer b0/b2 and ViTPose (ball and table), WASB (HRNet, ball) and
+HRNet (table). The HRNet models keep f32 weights and fold their BatchNorms
+once, at the first forward, into the working dtype. ViTPose is built for the
+detector's resolution (its position embedding has one row per patch), the
+`resolution=` override included, and runs its head's BatchNorms on their
+running statistics in the working dtype.
 
 Weights: `checkpoint` is a torch state dict (or a path to one saved with
 `torch.save`), e.g. the output of `utils/convert.py:flax_to_torch`; its
@@ -67,6 +70,8 @@ def _architecture(state: Mapping[str, torch.Tensor]) -> dict:
     """The architecture options a converted state dict was made for."""
     if "model.conv1.weight" in state:  # HRNet family: only the input frames vary
         return dict(in_frames=int(state["model.conv1.weight"].shape[1]) // 3)
+    if "model_backbone.patch_embed_proj.weight" in state:  # ViTPose: as the HRNets
+        return dict(in_frames=int(state["model_backbone.patch_embed_proj.weight"].shape[1]) // 3)
     if "decode_head.fusion_conv.weight" in state:
         head_style, fuse = "mmseg", state["decode_head.fusion_conv.weight"]
     else:
@@ -95,9 +100,8 @@ class _Detector:
             if not isinstance(checkpoint, Mapping):
                 state = torch.load(checkpoint, map_location="cpu", weights_only=True)
         arch = _architecture(state) if state is not None else {}
-        self.model, self.resolution = get_detector(model_name, task, **arch)
-        if resolution is not None:
-            self.resolution = tuple(resolution)
+        self.model, self.resolution = get_detector(model_name, task, resolution=resolution,
+                                                   **arch)
         if state is None:
             init_weights(self.model)
         else:
@@ -153,7 +157,7 @@ class _Detector:
 
 
 class BallDetector(_Detector):
-    """Ball detection on 3-frame triplets (prev, cur, next): SegFormer b0/b2 or WASB.
+    """Ball detection on 3-frame triplets (prev, cur, next): SegFormer b0/b2, ViTPose or WASB.
 
     flip_test: average each forward with one on the mirrored triplets."""
 
@@ -175,7 +179,8 @@ class BallDetector(_Detector):
 
 
 class TableDetector(_Detector):
-    """Table keypoint detection on single frames: SegFormer b0/b2 or HRNet (13 keypoints)."""
+    """Table keypoint detection on single frames: SegFormer b0/b2, ViTPose or HRNet
+    (13 keypoints)."""
 
     def __init__(self, model_name: str = "segformerpp_b2", checkpoint=None, chunk: int = 16,
                  resolution=None, device="cuda"):

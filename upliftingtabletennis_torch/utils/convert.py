@@ -6,7 +6,11 @@ the flax tree, so the map is a path walk with these transforms:
 
     conv kernel HWIO          -> weight OIHW (depthwise (3, 3, 1, C) -> (C, 1, 3, 3))
     Dense kernel (in, out)    -> weight (out, in)
+    ConvTranspose kernel      -> weight: flax `transpose_kernel=True` stores
+                                 (kh, kw, out, in); the same 4-D rule gives torch's
+                                 (in, out, kh, kw), with no spatial flip
     LayerNorm/BatchNorm scale -> weight
+    pos_embed (ViTPose)       -> pos_embed, as it is
     batch_stats mean / var    -> running_mean / running_var (+ num_batches_tracked)
 
 Reading the committed Orbax checkpoints needs the JAX package, so the
@@ -42,7 +46,7 @@ def flax_to_torch(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = "weight"
         elif name == "scale":
             name = "weight"
-        elif name != "bias":
+        elif name not in ("bias", "pos_embed"):
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
         sd[".".join(mod + [name])] = torch.from_numpy(np.array(a, dtype=np.float32))
     for path, leaf in _walk(variables.get("batch_stats", {})):
