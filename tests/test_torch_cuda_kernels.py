@@ -1,4 +1,4 @@
-"""K1, K2, K3, K5 and K6 CUDA kernels against their plain PyTorch versions on the card.
+"""K1, K2, K3, K4, K5 and K6 CUDA kernels against their plain PyTorch versions on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc and skip without them. They import
 only torch, so they run where JAX is absent:
@@ -14,11 +14,19 @@ f32 on the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <=
 of its bf16 roundings, 2^-8 (|plain| + softmax(q kᵀ) |v|) per element (`k3_limit`).
 K6 (box NMS) is exact: its suppression words equal the plain version's bit for bit
 and its keep mask the plain resolve's, at ragged N (one box, N around the 64-box
-word) and on boxes where ties and exact roundings decide.
+word) and on boxes where ties and exact roundings decide. K4 (depthwise 3x3) is held
+at K5's tolerance (only its output is rounded to bf16), forward and dx, at the b2
+hidden shapes of the 1600x896 trainer and ragged ones. The differentiable wrappers
+(K1, K2, K3 and K4 through their autograd Functions) give the gradients of their f32
+plain versions within 5e-2 in relative norm per input (bf16 operands and
+recomputation); a b2 SegFormer in training mode gives every parameter a finite
+gradient; K5, which has no backward yet, raises under grad.
 """
 import pytest
 import torch
 
+from upliftingtabletennis_torch.models.segformer import SegFormerNet
+from upliftingtabletennis_torch.ops.dwconv import depthwise_conv3x3, dwconv3x3_plain
 from upliftingtabletennis_torch.ops.flash_attention import (cross_attention_plain,
                                                             flash_cross_attention)
 from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plain,
@@ -32,6 +40,7 @@ from upliftingtabletennis_torch.ops import nms as k6
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 6e-2, 2e-2
 K5_ATOL, K5_RTOL = 1e-2, 8e-3
+GRAD_REL = 5e-2  # per-input ||g_kernel - g_plain|| / ||g_plain||, as chip_smoke.py's train phase
 
 
 def k3_limit(q, k, v, want, scale=None):
@@ -47,6 +56,9 @@ def k3_limit(q, k, v, want, scale=None):
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the f32 plain versions in full f32 (no TF32 in matmuls or cuDNN convolutions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -257,3 +269,91 @@ def test_k6_resolve_limit(gen, n):
     assert torch.equal(order, torch.arange(n, device="cuda"))
     assert torch.equal(words, want)
     assert torch.equal(keep, torch.arange(n, device="cuda") % 2 == 0)
+
+
+# b2's four hidden shapes at 1600x896, batch 4 (the trainer's), and ragged ones: H and W
+# not multiples of the 8 x 32 tile, C not a multiple of the 64-channel group
+@pytest.mark.parametrize("B,H,W,C", [
+    (4, 224, 400, 256), (4, 112, 200, 512), (4, 56, 100, 1280), (4, 28, 50, 2048),
+    (2, 9, 37, 64), (1, 17, 33, 8), (2, 3, 5, 136), (1, 1, 1, 16),
+])
+def test_k4_kernel_matches_plain(gen, B, H, W, C):
+    x = _rnd(gen, B, H, W, C).requires_grad_()
+    w, b = _rnd(gen, 3, 3, C, std=1 / 3), _rnd(gen, C, std=0.1)
+    g = _rnd(gen, B, H, W, C)
+    before = depthwise_conv3x3.launches
+    got = depthwise_conv3x3(x, w, b)
+    got.backward(g)  # dx: K4 on g with the flipped taps
+    torch.cuda.synchronize()
+    assert depthwise_conv3x3.launches == before + 2
+    want = dwconv3x3_plain(x.detach().float(), w.float(), b.float())
+    torch.testing.assert_close(got.detach().float(), want, atol=K5_ATOL, rtol=K5_RTOL)
+    dx = dwconv3x3_plain(g.float(), w.flip((0, 1)).float(), torch.zeros(C, device="cuda"))
+    torch.testing.assert_close(x.grad.float(), dx, atol=K5_ATOL, rtol=K5_RTOL)
+
+
+def test_k4_rejects_channels_not_multiple_of_8(gen):
+    x = torch.zeros(1, 4, 4, 12, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 8"):
+        depthwise_conv3x3(x, x[0, :3, :3], x[0, 0, 0])
+
+
+def _grads_close(kernel_fn, plain_fn, inputs):
+    """Gradients of every input: the kernel path on bf16 leaves against the plain version
+    on f32 copies of the same values, one bf16 cotangent."""
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    ref = [t.float().requires_grad_() for t in inputs]
+    out = kernel_fn(*leaves)
+    g = torch.randn(out.shape, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    want = torch.autograd.grad(plain_fn(*ref), ref, g.float())
+    for i, (a, b) in enumerate(zip(got, want)):
+        rel = ((a.float() - b).norm() / b.norm()).item()
+        assert rel <= GRAD_REL, f"input {i}: relative error {rel:.3g}"
+
+
+@pytest.mark.parametrize("B,H,W,C,heads,Nkv", [(2, 14, 25, 64, 1, 40), (2, 7, 13, 320, 5, 91)])
+def test_k1_k2_gradients_match_plain(gen, B, H, W, C, heads, Nkv):
+    HID, hd = 4 * C, C // heads
+    ffn = [_rnd(gen, B, H * W, C), 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+           _rnd(gen, C, HID, std=C ** -0.5), _rnd(gen, HID, std=0.1),
+           _rnd(gen, 3, 3, HID, std=1 / 3), _rnd(gen, HID, std=0.1),
+           _rnd(gen, HID, C, std=HID ** -0.5), _rnd(gen, C, std=0.1)]
+    before = (fused_ln_ffn.launches, depthwise_conv3x3.launches)
+    _grads_close(lambda x, *p: fused_ln_ffn(x, H, W, *p),
+                 lambda x, *p: ln_ffn_plain(x, H, W, *p), ffn)
+    # K2 forward once; its recompute backward runs K4 twice (the recompute and its dx)
+    assert (fused_ln_ffn.launches, depthwise_conv3x3.launches) == (before[0] + 1, before[1] + 2)
+    attn = [_rnd(gen, B, H * W, C), 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+            _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.1), _rnd(gen, B, Nkv, heads, hd),
+            _rnd(gen, B, Nkv, heads, hd), _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.1)]
+    _grads_close(lambda x, *p: fused_attention_block(x, H, W, heads, *p),
+                 lambda x, *p: attention_block_plain(x, heads, *p), attn)
+
+
+def test_k3_gradients_match_plain(gen):
+    q, k, v = (_rnd(gen, 2, n, 2, 64) for n in (300, 77, 77))
+    before = flash_cross_attention.launches
+    _grads_close(flash_cross_attention, cross_attention_plain, [q, k, v])
+    assert flash_cross_attention.launches == before + 1
+
+
+def test_b2_backward_gives_every_parameter_a_gradient(gen):
+    torch.manual_seed(0)
+    net = SegFormerNet(1, 3, "b2", train=True).cuda()
+    x = torch.randn(2, 256, 448, 9, device="cuda", generator=gen).to(torch.bfloat16)
+    net(x)[0].float().square().mean().backward()
+    for name, p in net.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+
+
+def test_k5_raises_under_grad(gen):
+    x = _rnd(gen, 1, 6, 9, 16)
+    w = _rnd(gen, 3, 3, 16, 16, std=0.1).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv3x3_bias_act(x, w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv1x1_bias_act(x, w[0, 0])
+    with torch.no_grad():
+        conv3x3_bias_act(x, w)

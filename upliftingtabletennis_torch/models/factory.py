@@ -22,7 +22,8 @@ DETECTOR_RESOLUTIONS = {
 
 def get_detector(name: str, task: str = "ball", in_frames: int = None,
                  classify_invisible: bool = False, head_style: str = "nvlabs",
-                 decoder_dim: int = 0, kernels: bool = True, resolution=None):
+                 decoder_dim: int = 0, kernels: bool = True, resolution=None,
+                 train: bool = False):
     """Build a detector. Returns (model, (W, H) input resolution).
 
     task 'ball': 3-frame input, 1 heatmap channel; 'table': 1 frame, 13 channels.
@@ -32,6 +33,9 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     head_style, decoder_dim) apply to SegFormer only. kernels=False runs the
     plain versions of the model's kernels, and ViTPose's attention in its einsum
     form in place of `F.scaled_dot_product_attention` (for comparisons only).
+    train=True builds a SegFormer in training mode (its head's BatchNorms on batch
+    statistics); the JAX factory's `remat` has no SegFormer counterpart (it ignores
+    it there). The other families' trainers are not ported yet.
     """
     if task not in ("ball", "table"):
         raise ValueError(f"unknown task {task!r}")
@@ -40,9 +44,14 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     res = tuple(resolution) if resolution is not None else DETECTOR_RESOLUTIONS[name]
     out_channels = 1 if task == "ball" else 13
     frames = in_frames if in_frames is not None else (3 if task == "ball" else 1)
-    if name in ("segformerpp_b0", "segformerpp_b2"):
+    is_segformer = name in ("segformerpp_b0", "segformerpp_b2")
+    if train and not is_segformer:
+        raise ValueError(f"training {name!r} is not ported yet (ROADMAP queue 1 item 8: the "
+                         f"HRNet and ViTPose trainers)")
+    if is_segformer:
         model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
-                             head_style=head_style, decoder_dim=decoder_dim, kernels=kernels)
+                             head_style=head_style, decoder_dim=decoder_dim, kernels=kernels,
+                             train=train)
     elif name == "vitpose":
         model = VitPoseNet(out_channels, frames, "small", res, sdpa=kernels)
     elif name == "wasb":

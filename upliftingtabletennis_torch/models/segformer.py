@@ -20,6 +20,14 @@ K3 (`ops/flash_attention.py`) attends to the block's k and v, and the
 output is projected, unmerged and added to x. The FFN half stays on K2, as
 in the JAX block. `proj` runs on the merged tokens before the unmerge: a
 per-token linear map commutes with the gather.
+
+Training (`SegFormerNet(train=True)`, the flax `train` flag, which sets the
+module's training mode): the decode head's BatchNorms normalise with the batch
+statistics and update their running statistics as flax `BatchNorm(momentum=0.9)`
+does. Every parameter is cast to the activation dtype where it is used, as the
+JAX block casts with `.astype(dt)`, so an f32 model runs bf16 activations and its
+gradients reach the f32 parameters through the casts. The kernel wrappers are
+differentiable (recompute backwards, `ops/`), so the same forward trains.
 """
 from __future__ import annotations
 
@@ -49,6 +57,16 @@ SR_RATIOS = (8, 4, 2, 1)
 MLP_RATIOS = (4, 4, 4, 4)
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 BN_EPS = 1e-5  # flax nn.BatchNorm default
+
+
+def _linear(x, lin: nn.Linear):
+    """nn.Linear with its parameters cast to x.dtype."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _conv(x, conv: nn.Conv2d):
+    """nn.Conv2d (NCHW) with its parameters cast to x.dtype."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride, conv.padding)
 
 
 def _layer_norm(x, norm: nn.LayerNorm):
@@ -85,9 +103,9 @@ class EfficientAttention(nn.Module):
             # padding split low = total // 2, high = the rest
             ph, pw = -H % r, -W % r
             t = F.pad(t, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
-            t = self.sr(t)
+            t = _conv(t, self.sr)
             kv_in = _layer_norm(t.flatten(2).transpose(1, 2), self.sr_norm)
-        kv = self.kv(kv_in).reshape(B, -1, 2, self.num_heads, C // self.num_heads)
+        kv = _linear(kv_in, self.kv).reshape(B, -1, 2, self.num_heads, C // self.num_heads)
         return kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()
 
     def merged(self, y, k, v, tome_ratio: float, kernels: bool):
@@ -98,9 +116,9 @@ class EfficientAttention(nn.Module):
         if N >= 256:
             plan = bipartite_soft_matching(y, int(N * tome_ratio))
             y = merge_tokens(plan, y)
-        q = self.q(y).reshape(B, y.shape[1], self.num_heads, C // self.num_heads)
+        q = _linear(y, self.q).reshape(B, y.shape[1], self.num_heads, C // self.num_heads)
         attend = flash_cross_attention if kernels else cross_attention_plain
-        o = self.proj(attend(q, k, v).reshape(B, -1, C))
+        o = _linear(attend(q, k, v).reshape(B, -1, C), self.proj)
         return o if plan is None else unmerge_tokens(plan, o)
 
 
@@ -127,22 +145,27 @@ class MiTBlock(nn.Module):
 
     def forward(self, x, H: int, W: int):
         a, f = self.attn, self.ffn
-        n1 = self.norm1
+        n1, n2 = self.norm1, self.norm2
+        dt = x.dtype
         y = _layer_norm(x, n1)
         k, v = a.kv_heads(y, H, W)
         if self.tome_ratio > 0:
             x = x + a.merged(y, k, v, self.tome_ratio, self.kernels)
-        elif self.kernels:
-            x = fused_attention_block(x, H, W, a.num_heads, n1.weight, n1.bias, a.q.weight.t(),
-                                      a.q.bias, k, v, a.proj.weight.t(), a.proj.bias, n1.eps)
         else:
-            x = attention_block_plain(x, a.num_heads, n1.weight, n1.bias, a.q.weight.t(),
-                                      a.q.bias, k, v, a.proj.weight.t(), a.proj.bias, n1.eps)
-        n2 = self.norm2
+            attn = [n1.weight, n1.bias, a.q.weight.t(), a.q.bias, k, v, a.proj.weight.t(),
+                    a.proj.bias]
+            attn = [t.to(dt) for t in attn]
+            if self.kernels:  # K1, differentiable (its recompute backward)
+                x = fused_attention_block(x, H, W, a.num_heads, *attn, eps=n1.eps)
+            else:
+                x = attention_block_plain(x, a.num_heads, *attn, eps=n1.eps)
         dw = f.dwconv.weight[:, 0].permute(1, 2, 0)  # (HID, 1, 3, 3) -> (3, 3, HID)
-        ffn = fused_ln_ffn if self.kernels else ln_ffn_plain
-        return ffn(x, H, W, n2.weight, n2.bias, f.fc1.weight.t(), f.fc1.bias, dw,
-                   f.dwconv.bias, f.fc2.weight.t(), f.fc2.bias, n2.eps)
+        ffn = [n2.weight, n2.bias, f.fc1.weight.t(), f.fc1.bias, dw, f.dwconv.bias,
+               f.fc2.weight.t(), f.fc2.bias]
+        ffn = [t.to(dt) for t in ffn]
+        if self.kernels:  # K2, differentiable (its recompute backward runs K4)
+            return fused_ln_ffn(x, H, W, *ffn, eps=n2.eps)
+        return ln_ffn_plain(x, H, W, *ffn, eps=n2.eps)
 
 
 class MiTBackbone(nn.Module):
@@ -173,7 +196,7 @@ class MiTBackbone(nn.Module):
         feats = []
         t = x.permute(0, 3, 1, 2)
         for s, depth in enumerate(self.depths):
-            t = getattr(self, f"patch_embed_{s}")(t)
+            t = _conv(t, getattr(self, f"patch_embed_{s}"))
             B, C, H, W = t.shape
             x = _layer_norm(t.flatten(2).transpose(1, 2), getattr(self, f"patch_norm_{s}"))
             x = x.contiguous()
@@ -192,10 +215,28 @@ def _resize_bilinear(t, hw):
     return y.permute(0, 2, 3, 1)
 
 
+FLAX_BN_MOMENTUM = 0.9  # flax BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 stat
+
+
 def _batch_norm(x, bn: nn.BatchNorm2d):
-    """Inference BatchNorm over the last (channel) axis of an NHWC tensor."""
-    scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-    return x * scale + (bn.bias - bn.running_mean * scale)
+    """BatchNorm over the last (channel) axis of an NHWC tensor, in f32, rounded to
+    x.dtype. Inference (bn.training False): the running statistics. Training: the
+    batch's mean and biased variance max(0, E[x²] - E[x]²), and the running
+    statistics move as flax's do (not as nn.BatchNorm2d's: unbiased, momentum 0.1)."""
+    xf = x.float()
+    if bn.training:
+        dims = tuple(range(x.ndim - 1))
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = FLAX_BN_MOMENTUM
+            bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+            bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+            bn.num_batches_tracked += 1
+        y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight.float())
+        return (y + bn.bias.float()).to(x.dtype)
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return (xf * scale + (bn.bias.float() - bn.running_mean.float() * scale)).to(x.dtype)
 
 
 class SegFormerHead(nn.Module):
@@ -219,19 +260,20 @@ class SegFormerHead(nn.Module):
     def forward(self, feats):
         D = self.linear_fuse.out_channels
         target_hw = feats[0].shape[1:3]
-        wf = self.linear_fuse.weight[:, :, 0, 0].t()  # (n*D, D), the flax kernel
+        dt = feats[0].dtype
+        wf = self.linear_fuse.weight[:, :, 0, 0].t().to(dt)  # (n*D, D), the flax kernel
         acc = bias = None
         for i, f in enumerate(feats):
             lin = getattr(self, f"linear_c{i}")
             blk = wf[(self.n - 1 - i) * D:(self.n - i) * D]
-            t = f @ (lin.weight.t() @ blk)
+            t = f @ (lin.weight.t().to(dt) @ blk)
             if i > 0:
                 t = _resize_bilinear(t, target_hw)
             acc = t if acc is None else acc + t
-            b = lin.bias @ blk
+            b = lin.bias.to(dt) @ blk
             bias = b if bias is None else bias + b
         x = torch.relu(_batch_norm(acc + bias, self.fuse_bn))
-        return x @ self.conv_seg.weight[:, :, 0, 0].t() + self.conv_seg.bias
+        return x @ self.conv_seg.weight[:, :, 0, 0].t().to(dt) + self.conv_seg.bias.to(dt)
 
 
 class MMSegHead(nn.Module):
@@ -252,17 +294,18 @@ class MMSegHead(nn.Module):
     def forward(self, feats):
         D = self.fusion_conv.out_channels
         target_hw = feats[0].shape[1:3]
-        wf = self.fusion_conv.weight[:, :, 0, 0].t()  # (n*D, D)
+        dt = feats[0].dtype
+        wf = self.fusion_conv.weight[:, :, 0, 0].t().to(dt)  # (n*D, D)
         acc = None
         for i, f in enumerate(feats):
-            t = f @ getattr(self, f"conv_{i}").weight[:, :, 0, 0].t()
+            t = f @ getattr(self, f"conv_{i}").weight[:, :, 0, 0].t().to(dt)
             t = torch.relu(_batch_norm(t, getattr(self, f"bn_{i}")))
             t = t @ wf[i * D:(i + 1) * D]
             if i > 0:
                 t = _resize_bilinear(t, target_hw)
             acc = t if acc is None else acc + t
         x = torch.relu(_batch_norm(acc, self.fusion_bn))
-        return x @ self.conv_seg.weight[:, :, 0, 0].t() + self.conv_seg.bias
+        return x @ self.conv_seg.weight[:, :, 0, 0].t().to(dt) + self.conv_seg.bias.to(dt)
 
 
 class SegFormerNet(nn.Module):
@@ -272,12 +315,15 @@ class SegFormerNet(nn.Module):
     head_style "nvlabs" (the framework's own training) or "mmseg" (ported
     reference checkpoints). tome_ratio > 0: the share of query tokens ToMe
     merges in every attention (no parameters of its own). kernels=False runs
-    the plain versions of the kernels (for comparisons only).
+    the plain versions of the kernels (for comparisons only). train=True puts the
+    module in training mode (the head's BatchNorms on batch statistics), as the
+    flax model's `train` field does; `.train()` / `.eval()` switch it later.
     """
 
     def __init__(self, out_channels: int = 1, in_frames: int = 3, model_size: str = "b2",
                  classify_invisible: bool = False, tome_ratio: float = 0.0,
-                 head_style: str = "nvlabs", decoder_dim: int = 0, kernels: bool = True):
+                 head_style: str = "nvlabs", decoder_dim: int = 0, kernels: bool = True,
+                 train: bool = False):
         super().__init__()
         dims = CFG[model_size]["dims"]
         self.backbone = MiTBackbone(model_size, 3 * in_frames, kernels, tome_ratio)
@@ -285,11 +331,12 @@ class SegFormerNet(nn.Module):
         self.decode_head = head_cls(dims, out_channels,
                                     decoder_dim or CFG[model_size]["decoder_dim"])
         self.visible_classification = nn.Linear(dims[-1], 2) if classify_invisible else None
+        self.train(train)
 
     def forward(self, x):
         feats = self.backbone(x)
         heat = self.decode_head(feats)
         cls_out = None
         if self.visible_classification is not None:
-            cls_out = self.visible_classification(feats[-1].mean(dim=(1, 2)))
+            cls_out = _linear(feats[-1].mean(dim=(1, 2)), self.visible_classification)
         return heat, cls_out

@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_attention.cu", "fused_ffn.cu", "fused_conv.cu", "flash_attention.cu", "nms.cu")
+SOURCES = ("fused_attention.cu", "fused_ffn.cu", "fused_conv.cu", "flash_attention.cu", "nms.cu",
+           "dwconv.cu")
 # No --use_fast_math: it would change expf and erff.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -104,6 +105,23 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     if status != 0:
         msg = lib.uttk_error_string(status).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {status} ({msg})")
+
+
+def uses_kernel(t: torch.Tensor, name: str) -> bool:
+    """Whether a wrapper launches its kernel for `t`: True on CUDA, False on the CPU
+    (the plain version), and an error on any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these operands (grad mode on and one of
+    them requires grad)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def operand(t: torch.Tensor, name: str, shape) -> torch.Tensor:

@@ -11,6 +11,12 @@ to `cross_attention_plain`, the plain PyTorch version of the same function
 that the tests hold against the JAX kernel. A build or launch failure
 raises; nothing falls back to the plain version on CUDA.
 
+It is differentiable: when autograd would record the call, it runs through
+`flash_cross_attention_diff`, the counterpart of the JAX custom VJP of the
+same name. Its forward is the kernel; its backward recomputes the attention
+densely through `cross_attention_plain` (Nkv stays small by SegFormer's
+spatial reduction) and returns that graph's gradients.
+
 Layout: q (B, Nq, h, hd), k and v (B, Nkv, h, hd), as in the JAX function.
 The kernel reads that layout directly (the JAX wrapper's transposes to
 (B·h, N, hd) are a TPU layout).
@@ -23,7 +29,7 @@ import torch
 
 from upliftingtabletennis_torch.ops import _build
 
-__all__ = ["flash_cross_attention", "cross_attention_plain"]
+__all__ = ["flash_cross_attention", "flash_cross_attention_diff", "cross_attention_plain"]
 
 _SOURCE = "flash_attention.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -50,22 +56,9 @@ def _lib():
     return lib
 
 
-def flash_cross_attention(q, k, v, scale=None):
-    """softmax(q kᵀ · scale) v per (sample, head); q (B, Nq, h, hd), k, v (B, Nkv, h, hd).
-
-    scale defaults to hd ** -0.5. Returns (B, Nq, h, hd) in q's dtype.
-    """
+def _launch(q, k, v, scale):
     B, Nq, heads, hd = q.shape
     Nkv = k.shape[1]
-    if k.shape != (B, Nkv, heads, hd) or v.shape != k.shape:
-        raise ValueError(f"bad shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
-    if scale is None:
-        scale = hd ** -0.5
-    if q.device.type == "cpu":
-        return cross_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_cross_attention: no kernel for device {q.device}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"the kernel takes bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS or Nkv < 1:
@@ -87,6 +80,54 @@ def flash_cross_attention(q, k, v, scale=None):
     _build.check(lib, status, "flash_cross_attention")
     flash_cross_attention.launches += 1
     return out
+
+
+class _FlashCrossAttention(torch.autograd.Function):
+    """K3 forward, dense recompute backward (the JAX `_flash_diff_fwd` / `_flash_diff_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_cross_attention(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = cross_attention_plain(*inputs, ctx.scale)
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+        return (*[next(grads) if t.requires_grad else None for t in inputs], None)
+
+
+def flash_cross_attention_diff(q, k, v, scale=None):
+    """`flash_cross_attention` as an autograd Function: K3's forward and a backward that
+    recomputes `cross_attention_plain` densely (port of the JAX `flash_cross_attention_diff`)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashCrossAttention.apply(q, k, v, float(scale))
+
+
+def flash_cross_attention(q, k, v, scale=None):
+    """softmax(q kᵀ · scale) v per (sample, head); q (B, Nq, h, hd), k, v (B, Nkv, h, hd).
+
+    scale defaults to hd ** -0.5. Returns (B, Nq, h, hd) in q's dtype. Differentiable
+    (through `flash_cross_attention_diff`).
+    """
+    B, Nq, heads, hd = q.shape
+    Nkv = k.shape[1]
+    if k.shape != (B, Nkv, heads, hd) or v.shape != k.shape:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if scale is None:
+        scale = hd ** -0.5
+    if _build.needs_grad(q, k, v):
+        return flash_cross_attention_diff(q, k, v, scale)
+    if _build.uses_kernel(q, "flash_cross_attention"):
+        return _launch(q, k, v, scale)
+    return cross_attention_plain(q, k, v, scale)
 
 
 flash_cross_attention.launches = 0

@@ -14,6 +14,10 @@ PyTorch versions `conv3x3_bias_act_plain` / `conv1x1_bias_act_plain`, which
 the tests hold against the JAX kernels. A build or launch failure raises;
 nothing falls back on CUDA.
 
+The kernels have no backward yet (it comes with the HRNet trainer): on CUDA
+a call that autograd would record raises, rather than return an output with
+no gradient. On the CPU the plain versions are differentiable.
+
 Weights use the JAX layout at this interface: (3, 3, Ci, Co) and (Ci, Co).
 The kernel reads them as `pack(w, b)` lays them out: (round16(Co),
 round16(taps * Ci)) bf16 with column (dy * 3 + dx) * Ci + ci, zero-padded,
@@ -141,13 +145,15 @@ def _run(wrapper, ks, x, w, b, residual, relu):
         what = tuple(w.shape)
     if not fits:
         raise ValueError(f"{name}: weight {what} for Ci={ci}")
-    if x.device.type == "cpu":
+    if not _build.uses_kernel(x, name):
         if packed is not None:
             w, b = unpack(packed)
         plain = conv3x3_bias_act_plain if ks == 3 else conv1x1_bias_act_plain
         return plain(x, w, b, residual, relu=relu)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+    operands = (x, residual, *((packed.weight, packed.bias) if packed is not None else (w, b)))
+    if _build.needs_grad(*operands):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet (the HRNet trainer, "
+                           f"ROADMAP queue 1 item 8); call it under torch.no_grad()")
     return _launch(wrapper, x, pack(w, b) if packed is None else packed, residual, relu)
 
 

@@ -1,0 +1,44 @@
+"""Self-describing checkpoints of the port: a torch state dict with its metadata beside it.
+
+Counterpart of `upliftingtabletennis_tpu/utils/checkpoint.py` (`save_checkpoint`,
+`load_checkpoint`), which writes Orbax directories. Here `path` is a `torch.save` file of
+the state dict alone, which `BallDetector(..., checkpoint=path)` and
+`TableDetector(..., checkpoint=path)` load (`weights_only=True`), and `path + ".json"`
+holds `{"identifier", "additional_info"}` (the reference's checkpoint contract: the
+hyperparameters that rebuild the architecture).
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+
+__all__ = ["save_checkpoint", "load_checkpoint"]
+
+
+def _meta_path(path: str) -> str:
+    return path + ".json"
+
+
+def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor], identifier: str,
+                    info: Dict[str, Any]) -> None:
+    """Write the state dict (as CPU tensors) to `path` and its metadata to `path.json`."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = {k: v.detach().cpu() for k, v in state_dict.items()}
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    with open(_meta_path(path), "w") as f:
+        json.dump({"identifier": identifier, "additional_info": info}, f, indent=2)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], str, Dict[str, Any]]:
+    """(state_dict, identifier, info) of a checkpoint written by `save_checkpoint`."""
+    path = os.path.abspath(path)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    with open(_meta_path(path)) as f:
+        meta = json.load(f)
+    return state, meta.get("identifier", ""), meta.get("additional_info", {})
