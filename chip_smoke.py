@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it, phase by phase.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases (each prints one line with what it measured and the seconds elapsed):
 
@@ -39,7 +39,9 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             1600x896, one b0 shape (hd 32, Nkv 2040) and one ragged shape, at K3's own
             limit, which must also reject two faults simulated with the plain version (a
             skipped key chunk; the ragged shape's tail unmasked); kernel, plain and
-            `F.scaled_dot_product_attention` times; the bound;
+            `F.scaled_dot_product_attention` times; the bound; and the gradients of
+            `flash_cross_attention_diff` (K3 forward, dense recompute backward) against the
+            plain version's at one b2 ToMe shape;
 10. tome    the b2 ball detector with ToMe at ratio 0.4 (`SegFormerNet(tome_ratio=0.4)`
             with the detector's weights) on the 16 triplets at chunk 8: 16 K3, 0 K1 and
             16 K2 launches per forward, frames/s, peak device memory with and without ToMe;
@@ -68,7 +70,24 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             calls over 64 frames each; heatmaps against a `kernels=False` f32 copy (einsum attention);
             `keypoints_from_heatmaps` (default and unbiased) on the table heatmaps against
             the same call on their CPU copy;
-15. hygiene  neither JAX nor the JAX package was imported.
+15. k4      K4 (depthwise 3x3, `ops/dwconv.py`) against its plain version (f32 on the same
+            bf16 inputs), forward and dx (K4 on the cotangent with the flipped taps, through
+            the autograd Function), at the four b2 hidden shapes of the 1600x896 trainer at
+            batch 4 and one ragged shape; two planted faults (dx with the unflipped taps, the
+            halo rows between 8-row tiles dropped) that the limit must reject; kernel, plain
+            and `F.conv2d(groups=C)` (channels_last bf16) times; the bound;
+16. train   the SegFormer trainer (`train/run_detection.py`) on segformerpp_b2, ball,
+            1600x896, batch 4, the loss at 1920x1080, on four synthetic triplets: (a) one
+            step's loss and every parameter's gradient on the kernel path (bf16) against the
+            f32 plain path (`kernels=False`, no TF32) on the same augmented batch, and a
+            planted fault (K4's dx with the unflipped taps) that must break the limit; (b)
+            one `train_step` (the main path, launch counts reset just before and read just
+            after): 16 K1, 16 K2, 32 K4 and no other launch; (c) ten steps on one fixed
+            batch: the loss finite and lower at the end; (d) ms per step (median of the warm
+            steps), images/s and peak memory; (e) the CLI on the card: 2 steps and a
+            validation pass on a tiny TTHQ layout written as PNGs, its checkpoint loaded by
+            `BallDetector`;
+17. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -175,6 +194,34 @@ VIT_RES = (1152, 640)  # ViTPose's native (W, H)
 # over VIT_RATE_ITEMS times the phase's 16 frames (8 chunks, about half a second): one
 # call of 2 chunks lasts 0.1 s, too short a window for the host's clock on a shared host
 VIT_RATE_CALLS, VIT_RATE_ITEMS = 5, 4
+
+# the trainer: segformerpp_b2, ball, at its 1600x896 input, batch 4 (the JAX default), the
+# loss at the 1920x1080 evaluation resolution
+TRAIN_BATCH, TRAIN_RES, EVAL_RES = 4, (1600, 896), (1920, 1080)
+# K4's shapes on that step: b2's hidden tensors (H, W, 4C), two launches per block (K2's
+# recompute and its dx), depth blocks per stage
+K4_SHAPES = [(TRAIN_BATCH, H, W, 4 * C, depth) for H, W, C, _, _, depth in B2_STAGES]
+K4_RAGGED = (2, 45, 77, 136, 0)  # H, W not multiples of the 8 x 32 tile, C of the 64 group
+K4_PER_BLOCK = 2
+# one step of the kernel path (bf16 forward, f32 loss) against the f32 plain path: the
+# loss within 2e-2 relative (16 blocks round their residual stream to bf16, 2^-9
+# relative). Each parameter's gradient err = ||g - g_f32|| / ||g_f32|| within 5e-2, or,
+# where bf16 alone does worse, within TRAIN_GRAD_NOISE times the error of the plain path
+# run in bf16 (`kernels=False`, the same bf16 batch): a sum over tokens that nearly
+# cancels (the biases of the last blocks) carries the bf16 noise of every token. Measured
+# on the card: the plain path in bf16 has err > 5e-2 on 89 of b2's 345 tensors, up to
+# 0.32 (stage3_block2.ffn.fc2.bias); the kernel path 1.69x the plain bf16 error at most
+# (median 1.16x); the planted fault (K4's dx unflipped) 4.9x.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_GRAD_NOISE = 2e-2, 5e-2, 2.5
+# gradients that are zero in exact arithmetic: a per-channel constant before the head's
+# batch-statistics BatchNorm cancels. Both paths must hold noise there, below 1e-3 of the
+# largest gradient norm.
+ZERO_GRAD = ("backbone.stage_norm_3.bias", "decode_head.linear_c0.bias",
+             "decode_head.linear_c1.bias", "decode_head.linear_c2.bias",
+             "decode_head.linear_c3.bias")
+ZERO_GRAD_REL = 1e-3
+TRAIN_STEPS = 10
+K3_GRAD_SHAPE = (2, 13440, 1400, 2, 64)  # b2 ToMe stage 2 at batch 2
 
 
 def log(phase: str, **kv) -> None:
@@ -438,6 +485,27 @@ def run_k3(torch, F, ops, gen):
                                  f"{(B, Nq, Nkv, heads, hd)}: {fault_worst}")
         entries.append(e)
         del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    # the backward Function: K3's forward, the dense recompute's gradients, against the
+    # plain version's gradients on f32 copies of the same bf16 inputs
+    B, Nq, Nkv, heads, hd = K3_GRAD_SHAPE
+    inputs = [torch.randn(B, n, heads, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+              for n in (Nq, Nkv, Nkv)]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    ref = [t.float().requires_grad_() for t in inputs]
+    out = ops.flash_cross_attention(*leaves)
+    cot = torch.randn(out.shape, generator=gen, device=DEVICE).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, cot)
+    want = torch.autograd.grad(cross_attention_plain(*ref), ref, cot.float())
+    grad_err = {n: ((a.float() - b).norm() / b.norm()).item()
+                for n, a, b in zip("qkv", got, want)}
+    log("k3", backward_shape=json.dumps(K3_GRAD_SHAPE), grad_rel_err=json.dumps(
+        {n: round(v, 5) for n, v in grad_err.items()}))
+    if not max(grad_err.values()) <= TRAIN_GRAD_REL:
+        raise AssertionError(f"flash_cross_attention_diff's gradients differ from the plain "
+                             f"version's: {grad_err}")
+    entries[0]["backward_grad_rel_err"] = grad_err
+    del inputs, leaves, ref, out, got, want
     torch.cuda.empty_cache()
     return entries
 
@@ -1263,6 +1331,317 @@ def run_vitpose(torch, ops, frames, profile=False):
     return res
 
 
+def k4_bound(B, H, W, C):
+    """(ms, bound_by) for K4: x read once, the output written once (bf16); 18 f32
+    operations per element."""
+    nbytes = 2 * (2 * B * H * W * C + 10 * C)
+    flops = 18 * B * H * W * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_k4(torch, F, ops, gen):
+    from upliftingtabletennis_torch.ops.dwconv import dwconv3x3_plain
+
+    entries = []
+    for B, H, W, C, depth in K4_SHAPES + [K4_RAGGED]:
+        def rnd(*shape, std=1.0):
+            return (torch.randn(*shape, generator=gen, device=DEVICE) * std).to(torch.bfloat16)
+
+        x, w, b, g = rnd(B, H, W, C), rnd(3, 3, C, std=1 / 3), rnd(C, std=0.1), rnd(B, H, W, C)
+        zero = torch.zeros(C, device=DEVICE)
+
+        def kernel():
+            return ops.depthwise_conv3x3(x, w, b)
+
+        def plain():
+            return dwconv3x3_plain(x.float(), w.float(), b.float())
+
+        got = kernel()
+        xg = x.clone().requires_grad_()
+        ops.depthwise_conv3x3(xg, w, b).backward(g)  # dx: K4 on g with the flipped taps
+        torch.cuda.synchronize()
+        want = plain()
+        fwd_abs, fwd_rel, fwd_ok = compare(torch, got, want, K5_ATOL, K5_RTOL)
+        dx_want = dwconv3x3_plain(g.float(), w.flip((0, 1)).float(), zero)
+        dx_abs, dx_rel, dx_ok = compare(torch, xg.grad, dx_want, K5_ATOL, K5_RTOL)
+        # planted faults, simulated with the plain version and rounded as the kernel rounds
+        # (every shape here has H > 8: the rows between the kernel's 8-row tiles exist)
+        unflipped = dwconv3x3_plain(g.float(), w.float(), zero).to(torch.bfloat16)
+        no_halo = torch.cat([dwconv3x3_plain(x[:, i:i + 8].float(), w.float(), b.float())
+                             for i in range(0, H, 8)], 1).to(torch.bfloat16)
+        caught = {"unflipped_dx": not compare(torch, unflipped, dx_want, K5_ATOL, K5_RTOL)[2],
+                  "halo_rows_dropped": not compare(torch, no_halo, want, K5_ATOL, K5_RTOL)[2]}
+        del want, dx_want, unflipped, no_halo, xg
+        w_conv = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+        x_cl = x.permute(0, 3, 1, 2)  # NHWC memory: a channels_last NCHW view
+
+        def library():
+            return F.conv2d(x_cl, w_conv, b, padding=1, groups=C)
+
+        lib_err = (library().permute(0, 2, 3, 1).float() - got.float()).abs().max().item()
+        ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
+            time_ms(torch, library)
+        bound_ms, bound_by = k4_bound(B, H, W, C)
+        ok = fwd_ok and dx_ok
+        e = dict(shape=dict(B=B, H=H, W=W, C=C), depth=depth, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 max_abs_err=max(fwd_abs, dx_abs), fwd_max_abs_err=fwd_abs,
+                 dx_max_abs_err=dx_abs, faults_caught=caught, library_vs_kernel_max_abs=lib_err)
+        log("k4", B=B, H=H, W=W, C=C, fwd_max_abs_err=f"{fwd_abs:.4g}",
+            dx_max_abs_err=f"{dx_abs:.4g}", ms=f"{ms:.4f}", conv2d_ms=f"{lib_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            faults_caught=json.dumps(caught), ok=ok)
+        if not ok:
+            raise AssertionError(f"K4 disagrees with its plain version at {(B, H, W, C)}: "
+                                 f"forward {fwd_abs}, dx {dx_abs}")
+        if not all(caught.values()):
+            raise AssertionError(f"K4's limit does not reject a planted fault at "
+                                 f"{(B, H, W, C)}: {caught}")
+        entries.append(e)
+        del x, g, got
+    torch.cuda.empty_cache()
+    return entries
+
+
+def grad_limit_ratios(errs, noise):
+    """{name: err / limit}, limit = max(TRAIN_GRAD_REL, TRAIN_GRAD_NOISE * the bf16 plain
+    path's err): above 1 fails."""
+    return {n: e / max(TRAIN_GRAD_REL, TRAIN_GRAD_NOISE * noise[n]) for n, e in errs.items()}
+
+
+def grad_rel_errors(torch, names, got, want):
+    """{name: ||got - want|| / ||want||} over the parameters whose gradient is not zero in
+    exact arithmetic, and the largest norm of `got` and of `want` over ZERO_GRAD, each over
+    the largest gradient norm of `want`."""
+    top = max(b.norm().item() for b in want)
+    errs, zero = {}, [0.0, 0.0]
+    for n, a, b in zip(names, got, want):
+        if n in ZERO_GRAD:
+            zero = [max(zero[0], a.float().norm().item() / top), max(zero[1], b.norm().item() / top)]
+        else:
+            errs[n] = ((a.float() - b).norm() / b.norm()).item()
+    return errs, zero
+
+
+def tiny_tthq(root, n_frames=8, hw=(180, 320)):
+    """A TTHQ layout of two videos of synthetic frames (a bright blob on texture), written as
+    PNGs: video 1 is the val/test pool, video 2 trains."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.data.png import write_png
+
+    H, W = hw
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:H, 0:W]
+    rows = ["video;frame;ball_x;ball_y;ball_flag"]
+    for video in (1, 2):
+        os.makedirs(os.path.join(root, "tthq", f"{video:02d}"))
+        for f in range(n_frames):
+            bx, by = rng.uniform(20, W - 20), rng.uniform(20, H - 20)
+            img = 80 + 30 * np.sin(xx / 9.0)[..., None] + rng.normal(0, 8, (H, W, 3))
+            img += 170 * np.exp(-((xx - bx) ** 2 + (yy - by) ** 2) / 18.0)[..., None]
+            write_png(os.path.join(root, "tthq", f"{video:02d}", f"{video:02d}_{f:06d}.png"),
+                      np.clip(img, 0, 255).astype(np.uint8))
+            if 1 <= f < n_frames - 1:
+                rows.append(f"{video};{f};{bx:.2f};{by:.2f};2")
+    with open(os.path.join(root, "tthq", "ball_detection.csv"), "w") as fh:
+        fh.write("\n".join(rows))
+
+
+def run_train(torch, ops, frames, profile=False):
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from upliftingtabletennis_torch.data.image_transforms import (ImageAugmentConfig,
+                                                                 augment_detection_batch)
+    from upliftingtabletennis_torch.eval.metrics import render_gaussian_heatmaps
+    from upliftingtabletennis_torch.hub import ball_detection
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.ops import dwconv
+    from upliftingtabletennis_torch.pipeline.interface import init_weights
+    from upliftingtabletennis_torch.train import run_detection as T
+
+    B = TRAIN_BATCH
+    images = torch.from_numpy(np.stack([np.concatenate(frames[t:t + 3], -1) for t in range(B)]))
+    images = images.to(DEVICE).float()
+    # the blob's centre in the middle frame of each triplet (synthetic_frames), 3 rows
+    # (centre, streak min, streak max) as TTHQ annotates it
+    coords = torch.tensor([[[300 + 140 * (t + 1), 700 - 45 * (t + 1)]] * 3 for t in range(B)],
+                          dtype=torch.float32, device=DEVICE)
+    vis = torch.ones(B, 3, device=DEVICE)
+    model, _ = get_detector("segformerpp_b2", "ball", train=True)
+    init_weights(model, 0)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    model.to(DEVICE)
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    gen = torch.Generator().manual_seed(0)
+    cfg = ImageAugmentConfig()
+    imgs, c_model, v = augment_detection_batch(gen, images, coords, vis, TRAIN_RES, cfg, True)
+    target = render_gaussian_heatmaps(T.eval_coords(c_model, TRAIN_RES, EVAL_RES)[:, :1],
+                                      v[:, :1], EVAL_RES[1], EVAL_RES[0])
+    x = imgs.to(torch.bfloat16)
+    del imgs
+
+    def grads_of(net, inp, outs=None):
+        """The loss and the parameters' gradients; `outs` collects every MiTBlock's
+        output and the heatmap (f32) of the forward."""
+        hooks = []
+        if outs is not None:
+            mods = [(n, m) for n, m in net.backbone.named_children() if "block" in n]
+            for n, m in mods + [("heat", net.decode_head)]:
+                hooks.append(m.register_forward_hook(
+                    lambda mod, a, o, n=n: outs.__setitem__(n, o.detach().float())))
+        try:
+            loss, _ = T.loss_fn(net, inp, target)
+        finally:
+            for h in hooks:
+                h.remove()
+        return loss.item(), torch.autograd.grad(loss, list(net.parameters()))
+
+    # (a) the kernel path against the f32 plain path on the same batch; the plain path
+    # in bf16 measures what bf16 alone costs
+    acts_k, acts_b, acts_p = {}, {}, {}
+    loss_k, g_k = grads_of(model, x, acts_k)
+    ref, _ = get_detector("segformerpp_b2", "ball", train=True, kernels=False)
+    ref.load_state_dict(state0)
+    ref.to(DEVICE)
+    loss_b, g_b = grads_of(ref, x, acts_b)
+    loss_p, g_p = grads_of(ref, x.float(), acts_p)
+    del ref
+
+    def act_err(acts):  # per block output and heatmap: max |a - f32| / max |f32|
+        return {n: ((a - acts_p[n]).abs().max() / acts_p[n].abs().max()).item()
+                for n, a in acts.items()}
+
+    fwd_k, fwd_b = act_err(acts_k), act_err(acts_b)
+    del acts_k, acts_b, acts_p
+    torch.cuda.empty_cache()
+    errs, zero = grad_rel_errors(torch, names, g_k, g_p)
+    noise, zero_b = grad_rel_errors(torch, names, g_b, g_p)
+    del g_k, g_b
+    with patched(dwconv, _dx_taps=lambda w: w):  # the planted fault: dx with unflipped taps
+        _, g_f = grads_of(model, x)
+    fault_errs, _ = grad_rel_errors(torch, names, g_f, g_p)
+    del g_f, g_p
+    torch.cuda.empty_cache()
+    ratios = grad_limit_ratios(errs, noise)
+    fault_ratios = grad_limit_ratios(fault_errs, noise)
+    worst, worst_ratio = max(errs, key=errs.get), max(ratios, key=ratios.get)
+    fault_worst = max(fault_ratios, key=fault_ratios.get)
+    loss_rel, loss_rel_b = abs(loss_k - loss_p) / abs(loss_p), abs(loss_b - loss_p) / abs(loss_p)
+    over = sum(e > TRAIN_GRAD_REL for e in errs.values())
+    log("train", step="a", loss_kernel=f"{loss_k:.6g}", loss_plain_bf16=f"{loss_b:.6g}",
+        loss_plain=f"{loss_p:.6g}", loss_rel_err=f"{loss_rel:.3g}",
+        loss_rel_err_plain_bf16=f"{loss_rel_b:.3g}", worst_grad=worst,
+        worst_grad_rel_err=f"{errs[worst]:.4g}", its_plain_bf16_err=f"{noise[worst]:.4g}",
+        tensors_over_5e_2=f"{over}/{len(errs)}", worst_over_limit=worst_ratio,
+        worst_err_over_limit=f"{ratios[worst_ratio]:.4g}",
+        zero_grad_norms=json.dumps([round(z, 8) for z in zero + zero_b]),
+        fault_worst=fault_worst, fault_err_over_limit=f"{fault_ratios[fault_worst]:.4g}",
+        heat_rel_err=f"{fwd_k['heat']:.4g}", heat_rel_err_plain_bf16=f"{fwd_b['heat']:.4g}",
+        block_rel_err_max=f"{max(v for n, v in fwd_k.items() if n != 'heat'):.4g}",
+        block_rel_err_max_plain_bf16=f"{max(v for n, v in fwd_b.items() if n != 'heat'):.4g}")
+    if not fwd_k["heat"] <= HEAT_TOL:
+        raise AssertionError(f"the training forward's heatmaps differ from the f32 plain "
+                             f"path: {fwd_k['heat']} > {HEAT_TOL}")
+    if not loss_rel <= TRAIN_LOSS_RTOL or not ratios[worst_ratio] <= 1:
+        raise AssertionError(f"one b2 training step of the kernel path differs from the f32 "
+                             f"plain path: loss {loss_rel}, gradient of {worst_ratio} "
+                             f"{errs[worst_ratio]} (bf16 plain {noise[worst_ratio]})")
+    if not max(zero + zero_b) <= ZERO_GRAD_REL:
+        raise AssertionError(f"gradients that are zero in exact arithmetic are not: {zero}")
+    if not fault_ratios[fault_worst] > 1:
+        raise AssertionError(f"the gradient limit does not see dx with unflipped taps: "
+                             f"{fault_ratios[fault_worst]}")
+
+    # (b) the main path: one train_step of the trainer, counts reset just before
+    opt = T.init_adam(params)
+    ema = [p.detach().clone() for p in params]
+    for k in ops.ALL:
+        getattr(ops, k).launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    T.train_step(model, params, opt, ema, gen, images, coords, vis, TRAIN_RES, EVAL_RES, cfg,
+                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    first_step_s = time.time() - t
+    launches = {k: getattr(ops, k).launches for k in ops.ALL}
+    want = {k: 0 for k in ops.ALL}
+    want.update(fused_attention_block=B2_PER_FORWARD, fused_ln_ffn=B2_PER_FORWARD,
+                depthwise_conv3x3=K4_PER_BLOCK * B2_PER_FORWARD)
+    log("train", step="b", launches=json.dumps(launches), first_step_s=f"{first_step_s:.3f}")
+    if launches != want:
+        raise AssertionError(f"a b2 training step launched {launches}, expected {want}")
+
+    # (c), (d) ten steps on one fixed batch: the loss falls; time per step, memory
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.time()
+        loss, _ = T.loss_fn(model, x, target)
+        T.apply_update(params, torch.autograd.grad(loss, params), opt, ema)
+        losses.append(loss.item())  # waits for the step's kernels
+        step_ms.append(1e3 * (time.time() - t))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(step_ms[1:])
+    aug_ms = time_ms(torch, lambda: augment_detection_batch(gen, images, coords, vis, TRAIN_RES,
+                                                            cfg, True), iters=5, warmup=1)
+    res = dict(loss_kernel=loss_k, loss_plain_bf16=loss_b, loss_plain=loss_p,
+               loss_rel_err=loss_rel, loss_rel_err_plain_bf16=loss_rel_b, grad_rel_err=errs,
+               grad_rel_err_plain_bf16=noise, worst_grad=worst, worst_over_limit=worst_ratio,
+               worst_err_over_limit=ratios[worst_ratio], zero_grad_norms=zero + zero_b,
+               fault_worst=fault_worst, fault_err_over_limit=fault_ratios[fault_worst],
+               forward_rel_err=fwd_k, forward_rel_err_plain_bf16=fwd_b,
+               launches=launches, first_step_s=first_step_s, losses=losses, step_ms=step_ms,
+               ms_per_step=ms, images_per_s=1e3 * B / ms, peak_mem_gb=peak_gb,
+               augment_ms=aug_ms)
+    log("train", step="cd", losses=json.dumps([round(v, 5) for v in losses]),
+        ms_per_step=f"{ms:.2f}", step_ms_range=f"{min(step_ms[1:]):.2f}-{max(step_ms[1:]):.2f}",
+        images_per_s=f"{res['images_per_s']:.3f}", peak_mem_gb=f"{peak_gb:.3f}",
+        augment_ms=f"{aug_ms:.3f}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"ten steps on one batch did not lower the loss: {losses}")
+    if profile:
+        def step():
+            loss, _ = T.loss_fn(model, x, target)
+            T.apply_update(params, torch.autograd.grad(loss, params), opt, ema)
+
+        res["profile"] = profile_calls(
+            torch, step, "one warm b2 training step (batch 4, 1600x896)",
+            categories={"k1_backward": "autograd::engine::evaluate_function: "
+                                       "_FusedAttentionBlockBackward",
+                        "k2_backward": "autograd::engine::evaluate_function: _FusedLnFfnBackward",
+                        "k4_backward": "autograd::engine::evaluate_function: "
+                                       "_DepthwiseConv3x3Backward"})
+    del model, params, opt, ema, x, target
+    torch.cuda.empty_cache()
+
+    # (e) the CLI on the card: 2 steps, a validation pass, a checkpoint BallDetector loads
+    with tempfile.TemporaryDirectory() as d:
+        tiny_tthq(d)
+        t = time.time()
+        T.main(["--task", "ball", "--model", "segformerpp_b2", "--data_root", d,
+                "--batch_size", "2", "--num_epochs", "1", "--val_iterations", "2",
+                "--max_steps", "2", "--resolution", "320", "192", "--eval_resolution", "640",
+                "360", "--save_dir", os.path.join(d, "ckpt"), "--logdir", os.path.join(d, "runs"),
+                "--device", DEVICE])
+        cli_s = time.time() - t
+        (ckpt,) = glob.glob(os.path.join(d, "ckpt", "*", "model.pt"))
+        det = ball_detection("segformerpp_b2", checkpoint=ckpt, device=DEVICE,
+                             resolution=(320, 192))
+        tri = synthetic_frames(3)
+        pos, _ = det.predict([(tri[0], tri[1], tri[2])])
+    log("train", step="e", cli_s=f"{cli_s:.1f}", peak=json.dumps(np.round(pos, 2).tolist()))
+    if pos.shape != (1, 3) or not np.isfinite(pos).all():
+        raise AssertionError(f"the trained checkpoint's detector gave {pos}")
+    res["cli_s"] = cli_s
+    return res
+
+
 def profile_calls(torch, fn, label, categories=None):
     """Device time by kernel over one warm call of `fn` (torch.profiler), the idle share,
     and the Python lines that make the host wait for the card."""
@@ -1336,8 +1715,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm b2 predict and one warm chunk of the four "
-                         "detectors with torch.profiler (time by kernel)")
+                    help="also trace one warm b2 predict, one warm chunk of the four "
+                         "detectors and one warm b2 training step with torch.profiler "
+                         "(time by kernel)")
     opts = ap.parse_args()
 
     import torch
@@ -1346,6 +1726,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    import upliftingtabletennis_torch.ops.dwconv as k4
     import upliftingtabletennis_torch.ops.flash_attention as k3
     import upliftingtabletennis_torch.ops.fused_attention as k1
     import upliftingtabletennis_torch.ops.fused_conv as k5
@@ -1383,8 +1764,9 @@ def main() -> int:
         flash_cross_attention = k3.flash_cross_attention
         overlap_words = k6.overlap_words  # K6's two kernels: 2 launches per nms_mask call
         resolve_words = k6.resolve_words
+        depthwise_conv3x3 = k4.depthwise_conv3x3
         ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act",
-               "flash_cross_attention", "overlap_words", "resolve_words")
+               "flash_cross_attention", "overlap_words", "resolve_words", "depthwise_conv3x3")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen)
@@ -1400,20 +1782,24 @@ def main() -> int:
     b0_res = run_b0(torch, Ops, frames)
     k6_res = run_k6(torch, Ops)
     vit_res = run_vitpose(torch, Ops, frames, profile=opts.profile)
+    torch.cuda.empty_cache()
+    k4_entries = run_k4(torch, F, Ops, gen)
+    train_res = run_train(torch, Ops, frames, profile=opts.profile)
 
-    # 15. hygiene
+    # 17. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
     log("hygiene", jax_free=True)
 
-    def summary(name, source, replaces, entries, launches=None, per=None):
+    def summary(name, source, replaces, entries, launches=None, per=None, scale=1):
         staged = [e for e in entries if e["depth"]]
 
-        def per_forward(key):  # summed over the blocks of one forward at chunk CHUNK
-            return sum(e[key] * e["depth"] for e in staged)
+        def per_forward(key):  # summed over the launches of one forward (or step)
+            return sum(e[key] * e["depth"] * scale for e in staged)
 
-        bytes_share = sum(e["bound_ms"] * e["depth"] for e in staged if e["bound_by"] == "bytes")
+        bytes_share = sum(e["bound_ms"] * e["depth"] * scale for e in staged
+                          if e["bound_by"] == "bytes")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": slice_res["launches"][name] if launches is None else launches,
                 "max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -1459,6 +1845,12 @@ def main() -> int:
                     f"(sum over its 16 blocks); launches over the tome phase's "
                     f"{N_FRAMES // HR_CHUNK} forwards"),
         k6_summary(k6_res),
+        summary("depthwise_conv3x3", "upliftingtabletennis_torch/ops/csrc/dwconv.cu",
+                "upliftingtabletennis_tpu/ops/dwconv.py:50", k4_entries,
+                launches=train_res["launches"]["depthwise_conv3x3"], scale=K4_PER_BLOCK,
+                per=f"one b2 training step at batch {TRAIN_BATCH}, 1600x896 (sum over its "
+                    f"{K4_PER_BLOCK * B2_PER_FORWARD} launches: K2's recompute and its dx in "
+                    f"each of the 16 blocks, at the block's hidden shape)"),
     ]
     total = time.time() - T0
     if opts.out:
@@ -1466,7 +1858,8 @@ def main() -> int:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
                        "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
                        "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
-                       "vitpose": vit_res, "total_s": total}, f, indent=1)
+                       "vitpose": vit_res, "k4": k4_entries, "train": train_res,
+                       "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

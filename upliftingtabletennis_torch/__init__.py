@@ -8,7 +8,8 @@ It imports only torch, numpy, scipy and the standard library at runtime.
 Covered today: the detectors and their filters: `BallDetector` (SegFormer
 b0/b2, ViTPose, WASB-HRNet; `hub.ball_detection`), `TableDetector` (SegFormer
 b0/b2, ViTPose, HRNet; `hub.table_detection`) and their `filter_trajectory`
-methods; and the pose ops (`ops.nms`, `ops.heatmap_decode`, `ops.ae_grouping`). Entry points run on CUDA by default and raise
+methods; the pose ops (`ops.nms`, `ops.heatmap_decode`, `ops.ae_grouping`); and the
+SegFormer detector trainer (`train.run_detection`). Entry points run on CUDA by default and raise
 when CUDA is absent; pass ``device="cpu"`` for the plain PyTorch path the
 tests use.
 """

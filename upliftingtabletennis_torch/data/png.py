@@ -1,5 +1,5 @@
 """A small PNG decoder (standard library `zlib` and numpy), so the port reads frames
-without cv2.
+without cv2, and an encoder for test data (`write_png`, no row filter).
 
 It takes what the TTHQ frames are: 8 bits per sample, no interlacing, colour types 0
 (grey), 2 (RGB) and 6 (RGBA), and raises on anything else. All five row filters are
@@ -16,7 +16,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png"]
+__all__ = ["read_png", "write_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
@@ -64,6 +64,23 @@ def _unfilter(rows: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
         pred = sub[r0:r1] * a + up[r0:r1] * b + avg[r0:r1] * ((a + b) >> 1) + pae[r0:r1] * paeth
         S[d + 2, r0 + 1:r1 + 1] = (raw[d, r0:r1] + pred) & 0xFF
     return S[diag + 2, r_idx + 1].astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """Write (H, W) or (H, W, 1/3/4) uint8 as an 8-bit PNG (no row filter)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, bpp = img.shape
+    colour = {1: 0, 3: 2, 4: 6}[bpp]
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * bpp)], 1)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
 
 
 def read_png(path) -> np.ndarray:

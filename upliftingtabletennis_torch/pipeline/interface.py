@@ -51,10 +51,10 @@ __all__ = ["BallDetector", "TableDetector", "WIDTH", "HEIGHT", "init_weights"]
 WIDTH, HEIGHT = 1920, 1080  # inference working resolution (ref: pipeline/interface.py:38)
 
 
-def init_weights(model: torch.nn.Module) -> None:
-    """Seeded random initialisation (seed 0): weights N(0, 1/fan_in), biases 0,
-    norm scales 1. The same weights on every device and every run."""
-    g = torch.Generator().manual_seed(0)
+def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
+    """Seeded random initialisation: weights N(0, 1/fan_in), biases 0, norm scales 1.
+    The same weights on every device and every run."""
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):
