@@ -160,7 +160,7 @@ class Prefetcher:
             try:
                 for i in range(n_batches):
                     self.q.put(make_batch(i))
-            except BaseException as e:  # handed to the consumer, which raises it
+            except Exception as e:  # handed to the consumer, which raises it
                 self.q.put(e)
             self.q.put(None)
 
@@ -172,6 +172,6 @@ class Prefetcher:
             item = self.q.get()
             if item is None:
                 return
-            if isinstance(item, BaseException):
+            if isinstance(item, Exception):
                 raise item
             yield item
