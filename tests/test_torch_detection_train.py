@@ -10,8 +10,9 @@
 * `apply_update` against `optax.chain(clip_by_global_norm(5.0), adam(lr))` and the EMA,
   fed the same gradients (Adam's first step is about lr * sign(g): gradients of two
   separate backward passes would compare noise), within 1e-6, with and without clipping;
-* the CLI end to end on a tiny TTHQ layout (b0, 128x96, 2 steps, a validation pass, on
-  the CPU), whose checkpoint `BallDetector` loads; the unported options raise.
+* the CLI end to end on a tiny TTHQ layout (b0, ball and table, 128x96, 2 steps, a
+  validation pass, on the CPU), whose checkpoint `BallDetector` / `TableDetector` loads;
+  the unported options raise.
 f32 throughout; JAX pinned to full-f32 matmuls (tests/conftest.py).
 """
 import glob
@@ -28,7 +29,7 @@ import torch
 from upliftingtabletennis_tpu.eval import metrics as jax_metrics
 from upliftingtabletennis_tpu.models.factory import get_detector as jax_get_detector
 from upliftingtabletennis_torch.models.factory import get_detector
-from upliftingtabletennis_torch.pipeline.interface import BallDetector
+from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
 from upliftingtabletennis_torch.train import run_detection as T
 from upliftingtabletennis_torch.utils.checkpoint import load_checkpoint
 from upliftingtabletennis_torch.utils.convert import flax_to_torch
@@ -175,19 +176,20 @@ def test_data_index_and_batches_match_jax(fake_tthq):
         list(PD.Prefetcher(lambda i: 1 // 0, 2))
 
 
-def test_cli_trains_validates_and_saves_a_loadable_checkpoint(fake_tthq, tmp_path):
+@pytest.mark.parametrize("task", ["ball", "table"])
+def test_cli_trains_validates_and_saves_a_loadable_checkpoint(fake_tthq, tmp_path, task):
     save = tmp_path / "ckpt"
-    T.main(["--task", "ball", "--model", "segformerpp_b0", "--data_root", fake_tthq,
+    T.main(["--task", task, "--model", "segformerpp_b0", "--data_root", fake_tthq,
             "--batch_size", "2", "--num_epochs", "1", "--val_iterations", "2",
             "--max_steps", "2", "--resolution", "128", "96", "--eval_resolution", "256", "192",
             "--exp_id", "cli", "--save_dir", str(save), "--logdir", str(tmp_path / "runs"),
             "--device", "cpu"])
-    (ckpt,) = glob.glob(str(save / "ball_segformerpp_b0_exp:cli_*" / "model.pt"))
+    (ckpt,) = glob.glob(str(save / f"{task}_segformerpp_b0_exp:cli_*" / "model.pt"))
     state, identifier, info = load_checkpoint(ckpt)
-    assert identifier.startswith("ball_segformerpp_b0_exp:cli_")
-    assert info["resolution"] == [128, 96] and info["in_frames"] == 3
+    assert identifier.startswith(f"{task}_segformerpp_b0_exp:cli_")
+    assert info["resolution"] == [128, 96] and info["in_frames"] == (3 if task == "ball" else 1)
     # the EMA weights moved away from the initial ones, and the statistics were updated
-    init, _ = get_detector("segformerpp_b0", "ball", train=True)
+    init, _ = get_detector("segformerpp_b0", task, train=True)
     T.init_weights(init, 42)
     assert any(not torch.equal(state[k], v) for k, v in init.state_dict().items()
                if k.startswith("backbone"))
@@ -196,10 +198,15 @@ def test_cli_trains_validates_and_saves_a_loadable_checkpoint(fake_tthq, tmp_pat
     rec = json.loads(open(log).read().splitlines()[-1])
     assert rec["it"] == 2 and all(f"pck{t}" in rec for t in (2, 5, 10, 20))
     assert np.isfinite(rec["loss"])
-    det = BallDetector("segformerpp_b0", checkpoint=ckpt, device="cpu", resolution=(128, 96))
     frames = np.random.default_rng(3).integers(0, 255, (2, 96, 128, 3), dtype=np.uint8)
-    pos, _ = det.predict([(frames[0], frames[1], frames[0])])
-    assert pos.shape == (1, 3) and np.isfinite(pos).all()
+    if task == "ball":
+        det = BallDetector("segformerpp_b0", checkpoint=ckpt, device="cpu", resolution=(128, 96))
+        pos, _ = det.predict([(frames[0], frames[1], frames[0])])
+        assert pos.shape == (1, 3) and np.isfinite(pos).all()
+    else:
+        det = TableDetector("segformerpp_b0", checkpoint=ckpt, device="cpu", resolution=(128, 96))
+        kps, _ = det.predict([frames[0]])
+        assert kps.shape == (1, 13, 3) and np.isfinite(kps[..., :2]).all()
 
 
 @pytest.mark.parametrize("flags,item", [
