@@ -10,9 +10,19 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             into `upliftingtabletennis_torch/_build/` (one nvcc per source, in parallel);
 3. k1       K1 (fused attention half-block) against its plain PyTorch version, run in
             f32 on the same bf16 inputs, at the four SegFormer-b2 stage shapes of the
-            1600x896 ball model; kernel, plain and stock-PyTorch times; the bound;
-4. k2       the same for K2 (fused LN + MixFFN half-block), plus one shape whose H and
-            W are not multiples of the kernel's tile;
+            1600x896 ball model, on two input sets (keys of std 1, and of std 3 where the
+            softmax is sharp); two planted faults simulated with the plain version (a
+            skipped key chunk, a dropped head) that the limit must reject; kernel, plain
+            and stock-PyTorch times, per call and pipelined; the bound;
+4. k2       the same for K2 (fused LN + MixFFN half-block) along its launch plan, plus
+            one shape whose H and W are not multiples of the tile and b0's widths; the
+            other route where a width has both (fused and split), timed beside the plan's;
+            planted faults: the last hidden chunk skipped, the halo rows between tiles
+            zeroed;
+4b. probe   P1/P2, the phase probes of K2/K1 (`upliftingtabletennis_torch/tools/`): every
+            mode at the four b2 stage shapes at batch 4, held against its plain version
+            at the k1/k2 limits, timed interleaved; the implied phase shares; launches of
+            the probe kernels counted over the phase;
 5. slice    `ball_detection("segformerpp_b2", device="cuda", chunk=4).predict` on 8
             seeded synthetic 1920x1080 triplets (the main path, with launch counts
             reset just before it and read just after); heatmaps of the kernel path
@@ -137,6 +147,13 @@ K3_RAGGED = (2, 1037, 777, 2, 64)  # the last chunk holds 9 keys and 55 zero-fil
 K3_SHAPES = [(8, 53760, 1400, 1, 64, 3), (8, 13440, 1400, 2, 64, 4), (8, 3360, 1400, 5, 64, 6),
              (8, 840, 1400, 8, 64, 3), (8, 78336, 2040, 1, 32, 0), (*K3_RAGGED, 0)]
 
+# K1's second input set: keys of std 3 (logits of std ~3, so a few keys carry each row's
+# softmax and the attention term is as large as x). On the first set (keys of std 1) the
+# head outputs are about 0.04 and a fault that skips one key chunk moves the output by
+# about 0.01, below K1's absolute limit; on this one it moves the rows whose keys it
+# skips by about 1.
+K1_SHARP_K_STD = 3.0
+
 # H100 SXM peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
@@ -246,21 +263,52 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def k1_bound(B, N, C, heads, Nkv):
-    """(ms, bound_by) for K1: each input read once, the output written once."""
+def pipelined_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms of one call when calls are issued back to back (the host runs ahead, as
+    in a model's forward): CUDA events around `reps` calls, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_breakdown(torch, fn, calls: int = 5) -> dict:
+    """{kernel name: device us per call} over `calls` warm calls of `fn` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:60]: e.self_device_time_total / calls
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def k1_bound(B, N, C, heads, Nkv, softmax=True):
+    """(ms, bound_by) for K1 (softmax=False: the probe's no_softmax, no exponentials):
+    each input read once, the output written once."""
     nbytes = 2 * (2 * B * N * C + 2 * B * Nkv * C + 2 * C * C + 4 * C)
     flops = 4 * B * N * C * C + 4 * B * N * Nkv * C  # q/out projections, QK^T, PV
-    exps = B * N * Nkv * heads
+    exps = B * N * Nkv * heads if softmax else 0
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(flops / BF16_TC_FLOPS, exps / SFU_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k2_bound(B, N, C, HID):
-    """(ms, bound_by) for K2: each input read once, the output written once."""
+def k2_bound(B, N, C, HID, taps=9):
+    """(ms, bound_by) for K2 (taps=1: the probe's centre-tap modes): each input read once,
+    the output written once."""
     nbytes = 2 * (2 * B * N * C + 2 * C * HID + 9 * HID + 2 * HID + 3 * C)
     flops = 4 * B * N * C * HID  # fc1 and fc2 on the tensor cores
-    dw_flops = 18 * B * N * HID  # depthwise 3x3 on the f32 cores
+    dw_flops = 2 * taps * B * N * HID  # depthwise 3x3 on the f32 cores
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(flops / BF16_TC_FLOPS, dw_flops / FP32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -315,22 +363,46 @@ def k3_check(torch, got, q, k, v, want, scale=None):
     return err.max().item(), worst, ok
 
 
-def run_k1(torch, F, ops, gen):
+def k1_inputs(torch, gen, B, N, C, heads, Nkv, k_std=1.0):
+    """x and K1's parameters (gamma, beta, wq, bq, k, v, wp, bp), seeded bf16 on the card."""
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=DEVICE) * std).to(torch.bfloat16)
+
+    hd = C // heads
+    x = rnd(B, N, C)
+    # wq and wp as the model passes them: views of torch Linear weights (out, in)
+    return x, (1 + rnd(C, std=0.1), rnd(C, std=0.1), rnd(C, C, std=C ** -0.5).t(), rnd(C, std=0.1),
+               rnd(B, Nkv, heads, hd, std=k_std), rnd(B, Nkv, heads, hd),
+               rnd(C, C, std=C ** -0.5).t(), rnd(C, std=0.1))
+
+
+def k1_faults(torch, x, heads, args, want):
+    """K1's planted faults, simulated with the plain version and rounded as the kernel
+    rounds: the keys of one 64-key chunk skipped (keys 64..127), and the last head's
+    output dropped from the concat (its V zeroed). {fault: caught by the k1 limit}."""
     from upliftingtabletennis_torch.ops.fused_attention import attention_block_plain
+
+    gamma, beta, wq, bq, k, v, wp, bp = [a.float() for a in args]
+    keep = torch.cat([torch.arange(64), torch.arange(128, k.shape[1])]).to(DEVICE)
+    v_drop = v.clone()
+    v_drop[:, :, -1] = 0
+    faults = {
+        "key_chunk_skipped": attention_block_plain(x.float(), heads, gamma, beta, wq, bq, k[:, keep],
+                                                   v[:, keep], wp, bp),
+        "head_dropped": attention_block_plain(x.float(), heads, gamma, beta, wq, bq, k, v_drop,
+                                              wp, bp),
+    }
+    return {name: not compare(torch, f.to(torch.bfloat16), want)[2] for name, f in faults.items()}
+
+
+def run_k1(torch, F, ops, gen, profile=False):
+    from upliftingtabletennis_torch.ops.fused_attention import attention_block_plain, attention_plan
 
     entries = []
     for H, W, C, heads, Nkv, depth in B2_STAGES:
         B, N, hd = CHUNK, H * W, C // heads
-
-        def rnd(*shape, std=1.0):
-            return (torch.randn(*shape, generator=gen, device=DEVICE) * std).to(torch.bfloat16)
-
-        x = rnd(B, N, C)
-        gamma, beta = (1 + rnd(C, std=0.1)), rnd(C, std=0.1)
-        wq, wp = rnd(C, C, std=C ** -0.5), rnd(C, C, std=C ** -0.5)
-        bq, bp = rnd(C, std=0.1), rnd(C, std=0.1)
-        k, v = rnd(B, Nkv, heads, hd), rnd(B, Nkv, heads, hd)
-        args = (gamma, beta, wq, bq, k, v, wp, bp)
+        x, args = k1_inputs(torch, gen, B, N, C, heads, Nkv)
+        gamma, beta, wq, bq, k, v, wp, bp = args
 
         def kernel():
             return ops.fused_attention_block(x, H, W, heads, *args)
@@ -343,7 +415,17 @@ def run_k1(torch, F, ops, gen):
         want = plain()
         max_abs, max_rel, ok = compare(torch, got, want)
         del want
-        wq_t, wp_t = wq.t().contiguous(), wp.t().contiguous()
+        # the same check on sharp attention (keys 3x larger: logits of std ~3, a few keys
+        # carry each row), where one skipped key chunk or one dropped head moves the
+        # output beyond the limit; the planted faults are simulated on these inputs
+        xs, sharp = k1_inputs(torch, gen, B, N, C, heads, Nkv, k_std=K1_SHARP_K_STD)
+        got_sharp = ops.fused_attention_block(xs, H, W, heads, *sharp)
+        torch.cuda.synchronize()
+        want_sharp = attention_block_plain(xs.float(), heads, *[a.float() for a in sharp])
+        sharp_abs, _, sharp_ok = compare(torch, got_sharp, want_sharp)
+        caught = k1_faults(torch, xs, heads, sharp, want_sharp)
+        del want_sharp, got_sharp, xs, sharp
+        wq_t, wp_t = wq.t(), wp.t()  # the Linear weights themselves
         kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
         def stock():
@@ -355,23 +437,55 @@ def run_k1(torch, F, ops, gen):
         stock_err = (stock().float() - got.float()).abs().max().item()
         ms, plain_ms, stock_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
             time_ms(torch, stock)
+        ms_pipe, stock_pipe = pipelined_ms(torch, kernel), pipelined_ms(torch, stock)
+        breakdown = kernel_breakdown(torch, kernel) if profile else None
         bound_ms, bound_by = k1_bound(B, N, C, heads, Nkv)
+        plan = attention_plan(B, N, C, heads)
         e = dict(shape=dict(B=B, N=N, C=C, heads=heads, Nkv=Nkv), depth=depth, ms=ms,
                  plain_ms=plain_ms, library_ms=stock_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 max_abs_err=max_abs, max_rel_err=max_rel, stock_vs_kernel_max_abs=stock_err)
+                 ms_pipelined=ms_pipe, library_ms_pipelined=stock_pipe, device_us=breakdown,
+                 max_abs_err=max(max_abs, sharp_abs), max_rel_err=max_rel,
+                 sharp_max_abs_err=sharp_abs, faults_caught=caught,
+                 stock_vs_kernel_max_abs=stock_err,
+                 blocks=[g for g in (plan["ln_grid"], plan["attention_grid"], plan["proj_grid"]) if g])
         log("k1", H=H, W=W, C=C, heads=heads, max_abs_err=f"{max_abs:.4g}",
-            max_rel_err=f"{max_rel:.4g}", ms=f"{ms:.4f}", stock_ms=f"{stock_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            ok=ok)
-        if not ok:
+            sharp_max_abs_err=f"{sharp_abs:.4g}", max_rel_err=f"{max_rel:.4g}", ms=f"{ms:.4f}",
+            stock_ms=f"{stock_ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
+            stock_ms_pipelined=f"{stock_pipe:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, faults_caught=json.dumps(caught), ok=ok and sharp_ok)
+        if not (ok and sharp_ok):
             raise AssertionError(f"K1 disagrees with its plain version at {(H, W, C)}: "
-                                 f"max_abs_err={max_abs}")
+                                 f"max_abs_err={max_abs}, on sharp attention {sharp_abs}")
+        if not all(caught.values()):
+            raise AssertionError(f"K1's limit does not reject a planted fault at {(H, W, C)}: "
+                                 f"{caught}")
         entries.append(e)
     return entries
 
 
-def run_k2(torch, F, ops, gen):
-    from upliftingtabletennis_torch.ops.fused_ffn import kernel_tile, ln_ffn_plain
+def k2_faults(torch, x, H, W, th, args, want):
+    """K2's planted faults, simulated with the plain version and rounded as the kernel
+    rounds: the last 64-channel hidden chunk skipped (its W2 rows zeroed), and the halo
+    rows between the plan's TH-row tiles zeroed (each band of TH rows convolved alone).
+    {fault: caught by the k2 limit}."""
+    from upliftingtabletennis_torch.ops.fused_ffn import ln_ffn_plain
+
+    f32 = [a.float() for a in args]
+    w2_cut = f32[6].clone()
+    w2_cut[-64:] = 0
+    B, _, C = x.shape
+    xi = x.float().reshape(B, H, W, C)
+    bands = [ln_ffn_plain(xi[:, r:r + th].reshape(B, -1, C), min(th, H - r), W, *f32)
+             .reshape(B, -1, W, C) for r in range(0, H, th)]
+    faults = {"last_hidden_chunk_skipped": ln_ffn_plain(x.float(), H, W, *f32[:6], w2_cut, f32[7]),
+              "tile_halo_rows_zeroed": torch.cat(bands, 1).reshape(B, H * W, C)}
+    return {name: not compare(torch, f.to(torch.bfloat16), want)[2] for name, f in faults.items()}
+
+
+def run_k2(torch, F, ops, gen, profile=False):
+    import upliftingtabletennis_torch.ops.fused_ffn as k2
+    from upliftingtabletennis_torch.ops.fused_ffn import ffn_plan, ln_ffn_plain
 
     shapes = [(H, W, C, depth) for H, W, C, _, _, depth in B2_STAGES] + [(*K2_RAGGED, 0)]
     shapes += [(*hwc, 0) for hwc in K2_B0]
@@ -383,10 +497,12 @@ def run_k2(torch, F, ops, gen):
             return (torch.randn(*shape, generator=gen, device=DEVICE) * std).to(torch.bfloat16)
 
         x = rnd(B, N, C)
-        args = (1 + rnd(C, std=0.1), rnd(C, std=0.1), rnd(C, HID, std=C ** -0.5),
+        # w1 and w2 as the model passes them: views of torch Linear weights (out, in)
+        args = (1 + rnd(C, std=0.1), rnd(C, std=0.1), rnd(HID, C, std=C ** -0.5).t(),
                 rnd(HID, std=0.1), rnd(3, 3, HID, std=1 / 3), rnd(HID, std=0.1),
-                rnd(HID, C, std=HID ** -0.5), rnd(C, std=0.1))
+                rnd(C, HID, std=HID ** -0.5).t(), rnd(C, std=0.1))
         gamma, beta, w1, b1, dw, bdw, w2, b2 = args
+        plan = ffn_plan(B, H, W, C, HID)
 
         def kernel():
             return ops.fused_ln_ffn(x, H, W, *args)
@@ -398,8 +514,27 @@ def run_k2(torch, F, ops, gen):
         torch.cuda.synchronize()
         want = plain()
         max_abs, max_rel, ok = compare(torch, got, want)
+        caught = k2_faults(torch, x, H, W, plan.th, args, want)
+        # where the width has both routes (the plan's choice, measured): the other one held
+        # to the same limit, and both timed back to back through the same C entry
+        # (comparison launches: not counted)
+        other = {"fused": "split", "split": "fused"}[plan.route]
+        alt = None
+        if C in k2.FUSED_WIDTHS:
+            operands = k2._operands(x, H, W, *args)[0]
+
+            def route_kernel(route):
+                return lambda: k2.run_kernel(k2._lib(), "uttk_fused_ffn", (), operands,
+                                             ffn_plan(B, H, W, C, HID, route), H, W, 1e-6,
+                                             "fused_ln_ffn")
+
+            alt_abs, _, alt_ok = compare(torch, route_kernel(other)(), want)
+            alt = dict(route=other, max_abs_err=alt_abs, ok=alt_ok,
+                       ms_pipelined={r: pipelined_ms(torch, route_kernel(r))
+                                     for r in (plan.route, other)})
+            ok = ok and alt_ok
         del want
-        w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
+        w1_t, w2_t = w1.t(), w2.t()  # the Linear weights themselves
         dw_conv = dw.permute(2, 0, 1).unsqueeze(1).contiguous()
 
         def stock():
@@ -411,20 +546,91 @@ def run_k2(torch, F, ops, gen):
 
         ms, plain_ms, stock_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
             time_ms(torch, stock)
+        ms_pipe, stock_pipe = pipelined_ms(torch, kernel), pipelined_ms(torch, stock)
+        breakdown = kernel_breakdown(torch, kernel) if profile else None
         bound_ms, bound_by = k2_bound(B, N, C, HID)
-        tile = kernel_tile(C)
-        e = dict(shape=dict(B=B, H=H, W=W, C=C, HID=HID), tile=list(tile), depth=depth, ms=ms,
+        e = dict(shape=dict(B=B, H=H, W=W, C=C, HID=HID), route=plan.route,
+                 ms_pipelined=ms_pipe, library_ms_pipelined=stock_pipe, device_us=breakdown,
+                 tile=[plan.th, plan.tw],
+                 blocks=[g for g in (plan.ln_grid, plan.fc1_grid, plan.grid, plan.fc2_grid) if g],
+                 depth=depth, ms=ms,
                  plain_ms=plain_ms, library_ms=stock_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 max_abs_err=max_abs, max_rel_err=max_rel)
-        log("k2", H=H, W=W, C=C, tile=f"{tile[0]}x{tile[1]}", max_abs_err=f"{max_abs:.4g}",
-            max_rel_err=f"{max_rel:.4g}", ms=f"{ms:.4f}", stock_ms=f"{stock_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            ok=ok)
+                 max_abs_err=max_abs, max_rel_err=max_rel, faults_caught=caught, other_route=alt)
+        log("k2", H=H, W=W, C=C, route=plan.route, tile=f"{plan.th}x{plan.tw}",
+            max_abs_err=f"{max_abs:.4g}", max_rel_err=f"{max_rel:.4g}", ms=f"{ms:.4f}",
+            stock_ms=f"{stock_ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
+            stock_ms_pipelined=f"{stock_pipe:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, faults_caught=json.dumps(caught),
+            other_route=json.dumps(alt), ok=ok)
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {(H, W, C)}: "
-                                 f"max_abs_err={max_abs}")
+                                 f"max_abs_err={max_abs}, other route {alt}")
+        if not all(caught.values()):
+            raise AssertionError(f"K2's limit does not reject a planted fault at {(H, W, C)}: "
+                                 f"{caught}")
         entries.append(e)
     return entries
+
+
+def run_probe(torch, ops):
+    """P1/P2 through their public `run`: every mode at the four b2 stage shapes at batch
+    CHUNK, against its plain version at the k1/k2 limits, timed interleaved; the launch
+    counts of the probe kernels set to 0 just before and read just after."""
+    from upliftingtabletennis_torch.tools import probe_attn_phases as p2
+    from upliftingtabletennis_torch.tools import probe_ffn_phases as p1
+
+    p2.attention_probe.launches = p1.ffn_probe.launches = 0
+    for name in ops.ALL:
+        getattr(ops, name).launches = 0
+    reports = {"attention_probe": p2.run(batch=CHUNK, plain_iters=3),
+               "ffn_probe": p1.run(batch=CHUNK, plain_iters=3)}
+    launches = {"attention_probe": p2.attention_probe.launches, "ffn_probe": p1.ffn_probe.launches,
+                "fused_attention_block": ops.fused_attention_block.launches,
+                "fused_ln_ffn": ops.fused_ln_ffn.launches}
+    bad = []
+    for probe, modes in (("attention_probe", p2.MODES), ("ffn_probe", p1.MODES)):
+        for stage, e in reports[probe].items():
+            B, H, W, C = (e["shape"][k] for k in "BHWC")
+            for m in modes:
+                if probe == "attention_probe":
+                    bound = k1_bound(B, H * W, C, e["shape"]["heads"], e["shape"]["Nkv"],
+                                     softmax=m != "no_softmax")
+                else:
+                    bound = k2_bound(B, H * W, C, 4 * C, taps=1 if "dw" in m else 9)
+                e[m]["bound_ms"], e[m]["bound_by"] = bound
+                if not e[m]["ok"]:
+                    bad.append((probe, stage, m, e[m]["max_abs_err"]))
+            log("probe", kernel=probe, stage=stage,
+                ms=json.dumps({m: round(e[m]["ms"], 4) for m in modes}),
+                plain_ms=json.dumps({m: round(e[m]["plain_ms"], 4) for m in modes}),
+                max_abs_err=json.dumps({m: round(e[m]["max_abs_err"], 4) for m in modes}),
+                shares=json.dumps({k: round(v, 3) for k, v in e["shares"].items()}),
+                ok=all(e[m]["ok"] for m in modes))
+    log("probe", launches=json.dumps(launches))
+    if bad:
+        raise AssertionError(f"a probe variant disagrees with its plain version: {bad}")
+    if not (launches["attention_probe"] and launches["ffn_probe"]):
+        raise AssertionError(f"the probe phase launched no probe kernel: {launches}")
+    return {"reports": reports, "launches": launches}
+
+
+def probe_summary(probe_res, name, source, replaces, modes):
+    """The kernels-line entry of one probe: its variants (every mode but `full`) summed
+    over the four b2 stages at batch CHUNK."""
+    rep = probe_res["reports"][name]
+    cells = [e[m] for e in rep.values() for m in modes[1:]]
+    bytes_share = sum(c["bound_ms"] for c in cells if c["bound_by"] == "bytes")
+    bound = sum(c["bound_ms"] for c in cells)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": probe_res["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in cells),
+            "ms": sum(c["ms"] for c in cells), "plain_ms": sum(c["plain_ms"] for c in cells),
+            "bound_ms": bound, "bound_by": "bytes" if bytes_share * 2 > bound else "operations",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a phase-probe variant",
+            "per": f"each variant ({', '.join(modes[1:])}) once at each of the four b2 stages "
+                   f"at batch {CHUNK}, summed; launches over the probe phase",
+            "per_stage": rep}
 
 
 def run_k3(torch, F, ops, gen):
@@ -1770,8 +1976,10 @@ def main() -> int:
                "flash_cross_attention", "overlap_words", "resolve_words", "depthwise_conv3x3")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    k1_entries = run_k1(torch, F, Ops, gen)
-    k2_entries = run_k2(torch, F, Ops, gen)
+    k1_entries = run_k1(torch, F, Ops, gen, profile=opts.profile)
+    k2_entries = run_k2(torch, F, Ops, gen, profile=opts.profile)
+    probe_res = run_probe(torch, Ops)
+    torch.cuda.empty_cache()
     slice_res = run_slice(torch, Ops, profile=opts.profile)
     k5_entries = run_k5(torch, F, gen)
     frames = synthetic_frames(N_FRAMES + 2)
@@ -1808,6 +2016,9 @@ def main() -> int:
                 "bound_ms": per_forward("bound_ms"),
                 "bound_by": "bytes" if bytes_share * 2 > per_forward("bound_ms") else "operations",
                 "library_ms": per_forward("library_ms"),
+                **({"ms_pipelined": per_forward("ms_pipelined"),
+                    "library_ms_pipelined": per_forward("library_ms_pipelined")}
+                   if all("ms_pipelined" in e for e in staged) else {}),
                 "per": per or "one b2 forward at batch %d (sum over its 16 blocks)" % CHUNK,
                 "per_stage": entries}
 
@@ -1837,6 +2048,11 @@ def main() -> int:
                 "upliftingtabletennis_tpu/ops/fused_attention.py:34", k1_entries),
         summary("fused_ln_ffn", "upliftingtabletennis_torch/ops/csrc/fused_ffn.cu",
                 "upliftingtabletennis_tpu/ops/fused_ffn.py:50", k2_entries),
+        probe_summary(probe_res, "attention_probe",
+                      "upliftingtabletennis_torch/ops/csrc/fused_attention_probe.cu",
+                      "tools/probe_attn_phases.py:37", ("full", "no_softmax", "no_ln")),
+        probe_summary(probe_res, "ffn_probe", "upliftingtabletennis_torch/ops/csrc/fused_ffn_probe.cu",
+                      "tools/probe_ffn_phases.py:41", ("full", "no_dw", "no_gelu", "no_dwgelu")),
         k5_summary("conv3x3_bias_act", "upliftingtabletennis_tpu/ops/fused_conv.py:70"),
         k5_summary("conv1x1_bias_act", "upliftingtabletennis_tpu/ops/fused_conv.py:98"),
         summary("flash_cross_attention", "upliftingtabletennis_torch/ops/csrc/flash_attention.cu",
@@ -1857,7 +2073,7 @@ def main() -> int:
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
-                       "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
+                       "probe": probe_res, "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
                        "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
                        "vitpose": vit_res, "k4": k4_entries, "train": train_res,
                        "total_s": total}, f, indent=1)

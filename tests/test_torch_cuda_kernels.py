@@ -1,13 +1,16 @@
-"""K1, K2, K3, K4, K5 and K6 CUDA kernels against their plain PyTorch versions on the card.
+"""K1, K2, K3, K4, K5 and K6 CUDA kernels, and the phase probes of K1 and K2, against
+their plain PyTorch versions on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc and skip without them. They import
 only torch, so they run where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Shapes are small and ragged (N not a multiple of the 64-row tile, Nkv below one
-64-key chunk, head dim 32 as in b0, H and W not multiples of the FFN or conv tile;
-every K2 width of b0 and b2; K3's Nq and Nkv not multiples of its 128-row and 64-key
+Shapes are small and ragged (N below one 128-row tile or not a multiple of it, Nkv of
+1, below one 64-key chunk, ragged and b0's 2040, every (C, heads) of b0 and b2, H and
+W not multiples of the FFN or conv tile; every K2 width and plan of b0 and b2 (fused
+and two-pass), and the plans' shared memory against the C side's formula; every probe
+mode of K1 and K2; K3's Nq and Nkv not multiples of its 128-row and 64-key
 tiles; the stems' Ci = 3 and 9, the heads' Co = 3 and 13). The plain version runs in
 f32 on the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <=
 6e-2 + 2e-2 |plain| for K1 and K2, 1e-2 + 8e-3 |plain| for K5, and for K3 the bound
@@ -35,7 +38,11 @@ from upliftingtabletennis_torch.ops.fused_conv import (conv1x1_bias_act, conv1x1
                                                       conv3x3_bias_act, conv3x3_bias_act_plain,
                                                       pack)
 from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn, ln_ffn_plain
+from upliftingtabletennis_torch.ops import fused_attention as fa
+from upliftingtabletennis_torch.ops import fused_ffn as k2
 from upliftingtabletennis_torch.ops import nms as k6
+from upliftingtabletennis_torch.tools import probe_attn_phases as probe_attn
+from upliftingtabletennis_torch.tools import probe_ffn_phases as probe_ffn
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 6e-2, 2e-2
@@ -98,6 +105,103 @@ def test_k2_kernel_matches_plain(gen, B, H, W, C):
     torch.cuda.synchronize()
     assert fused_ln_ffn.launches == before + 1
     want = ln_ffn_plain(x.float(), H, W, *[a.float() for a in args])
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+def _k1_case(gen, B, N, C, heads, Nkv):
+    hd = C // heads
+    return _rnd(gen, B, N, C), (
+        1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1), _rnd(gen, C, C, std=C ** -0.5),
+        _rnd(gen, C, std=0.1), _rnd(gen, B, Nkv, heads, hd), _rnd(gen, B, Nkv, heads, hd),
+        _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.1))
+
+
+# every (C, heads) of b0 and b2; one key, a ragged key chunk, b0's 2040 keys; N below one
+# 128-row tile at B = 1, a ragged second tile at B = 2
+@pytest.mark.parametrize("C,heads", [(32, 1), (64, 2), (160, 5), (256, 8), (64, 1), (128, 2),
+                                     (320, 5), (512, 8)])
+@pytest.mark.parametrize("Nkv", [1, 65, 2040])
+@pytest.mark.parametrize("B,H,W", [(1, 7, 9), (2, 10, 13)])
+def test_k1_detector_widths_match_plain(gen, C, heads, Nkv, B, H, W):
+    x, args = _k1_case(gen, B, H * W, C, heads, Nkv)
+    before = fused_attention_block.launches
+    got = fused_attention_block(x, H, W, heads, *args)
+    torch.cuda.synchronize()
+    assert fused_attention_block.launches == before + 1
+    want = attention_block_plain(x.float(), heads, *[a.float() for a in args])
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+def _k2_case(gen, B, H, W, C):
+    HID = 4 * C
+    return _rnd(gen, B, H * W, C), (
+        1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1), _rnd(gen, C, HID, std=C ** -0.5),
+        _rnd(gen, HID, std=0.1), _rnd(gen, 3, 3, HID, std=1 / 3), _rnd(gen, HID, std=0.1),
+        _rnd(gen, HID, C, std=HID ** -0.5), _rnd(gen, C, std=0.1))
+
+
+_K2_PLANS = [(C, "fused") for C in k2.FUSED_WIDTHS] + [(C, "split") for C in k2.WIDTHS]
+
+
+# every instantiated (width, route), through the C entry with that plan; H and W ragged
+# for all three tile widths (and one pixel)
+@pytest.mark.parametrize("C,route", _K2_PLANS)
+@pytest.mark.parametrize("B,H,W", [(2, 13, 19), (1, 9, 50), (1, 1, 1)])
+def test_k2_every_plan_matches_plain(gen, C, route, B, H, W):
+    x, args = _k2_case(gen, B, H, W, C)
+    ops, plan = k2._operands(x, H, W, *args)
+    plan = k2.ffn_plan(B, H, W, C, 4 * C, route)
+    got = k2.run_kernel(k2._lib(), "uttk_fused_ffn", (), ops, plan, H, W, 1e-6, "fused_ln_ffn")
+    torch.cuda.synchronize()
+    want = ln_ffn_plain(x.float(), H, W, *[a.float() for a in args])
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_launch_plans_use_the_c_shared_memory_formulas(gen):
+    """The plans' shared memory (Python) equals what the C side computes and checks."""
+    import ctypes
+
+    lib = k2._lib()
+    lib.uttk_fused_ffn_smem.argtypes = [ctypes.c_int] * 4
+    lib.uttk_fused_ffn_smem.restype = ctypes.c_longlong
+    for C in k2.FUSED_WIDTHS:
+        for tw in k2.TILE_WIDTHS:
+            assert lib.uttk_fused_ffn_smem(C, 1, tw, 0) == k2.tile_smem(C, tw)
+            assert lib.uttk_fused_ffn_smem(C, 0, tw, 0) == k2.stencil_smem(tw)
+    plan = k2.ffn_plan(4, 28, 50, 512, 2048)
+    assert lib.uttk_fused_ffn_smem(0, 0, 0, 1) == plan.gemm_smem
+    lib1 = fa._lib()
+    lib1.uttk_fused_attention_smem.argtypes = [ctypes.c_int]
+    lib1.uttk_fused_attention_smem.restype = ctypes.c_longlong
+    for C, heads in [(16, 1), (64, 2), (96, 2), (256, 4)]:
+        plan = fa.attention_plan(2, 300, C, heads)
+        assert lib1.uttk_fused_attention_smem(C // heads) == plan["attention_smem"]
+        if heads > 1:
+            assert lib1.uttk_fused_attention_smem(0) == plan["proj_smem"]
+
+
+@pytest.mark.parametrize("mode", probe_attn.MODES)
+@pytest.mark.parametrize("B,H,W,C,heads,Nkv", [(2, 9, 17, 128, 2, 77), (1, 5, 30, 512, 8, 130)])
+def test_attention_probe_modes_match_plain(gen, mode, B, H, W, C, heads, Nkv):
+    x, args = _k1_case(gen, B, H * W, C, heads, Nkv)
+    before = probe_attn.attention_probe.launches
+    got = probe_attn.attention_probe(mode, x, H, W, heads, *args)
+    torch.cuda.synchronize()
+    assert probe_attn.attention_probe.launches == before + (mode != "full")
+    want = probe_attn.attention_probe_plain(mode, x.float(), heads, *[a.float() for a in args])
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("mode", probe_ffn.MODES)
+@pytest.mark.parametrize("B,H,W,C", [(2, 19, 13, 64), (1, 17, 10, 128), (1, 9, 21, 320),
+                                     (2, 6, 50, 512)])
+def test_ffn_probe_modes_match_plain(gen, mode, B, H, W, C):
+    x, args = _k2_case(gen, B, H, W, C)
+    before = probe_ffn.ffn_probe.launches
+    got = probe_ffn.ffn_probe(mode, x, H, W, *args)
+    torch.cuda.synchronize()
+    assert probe_ffn.ffn_probe.launches == before + (mode != "full")
+    want = probe_ffn.ffn_probe_plain(mode, x.float(), H, W, *[a.float() for a in args])
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
 
 

@@ -28,10 +28,25 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("fused_attention.cu", "fused_ffn.cu", "fused_conv.cu", "flash_attention.cu", "nms.cu",
-           "dwconv.cu")
+           "dwconv.cu", "fused_attention_probe.cu", "fused_ffn_probe.cu")
 # No --use_fast_math: it would change expf and erff.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Mirrors of csrc/tiles.cuh, for the launch plans computed in Python (ops/fused_attention.py,
+# ops/fused_ffn.py): rows of a block's tile, depth and row stride of a streamed chunk, the
+# dynamic shared memory a block may use on sm_90, and the LayerNorm's and the product's tiles.
+BM, KC, PAD = 128, 64, 8
+LDK = KC + PAD
+SMEM_LIMIT = 232448
+LN_ROWS = 32  # rows per block of the LayerNorm kernel
+GEMM_TILE, GEMM_KC, GEMM_STAGES = 128, 64, 3  # the streamed product: 128 x 128 tiles
+
+
+def gemm_smem() -> int:
+    """Dynamic shared memory of one block of `gemm_kernel` (tiles.cuh `gemm_smem`)."""
+    return 2 * GEMM_STAGES * 2 * GEMM_TILE * (GEMM_KC + PAD)
+
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -52,6 +67,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
@@ -124,8 +141,20 @@ def needs_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
+def call_on_device(t: torch.Tensor, fn):
+    """fn(stream handle) on t's device with its current stream (the kernels launch on the
+    current device); the device is switched only when it is not already current."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(t.device):
+        return fn(torch.cuda.current_stream().cuda_stream)
+
+
 def operand(t: torch.Tensor, name: str, shape) -> torch.Tensor:
     """A kernel operand: checked for shape and bf16, contiguous and 32-byte aligned."""
+    if t.dtype is torch.bfloat16 and t.shape == shape and t.is_contiguous() \
+            and not t.data_ptr() % 32:
+        return t
     if t.shape != torch.Size(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.dtype != torch.bfloat16:

@@ -1,337 +1,7 @@
-// K1: fused SegFormer attention half-block for Hopper (sm_90a).
-//
-//   out = x + concat_h softmax(q_h k_h^T / sqrt(hd)) v_h . Wp + bp,
-//   q = LN(x) . Wq + bq          (LN eps given, f32; logits/softmax in f32)
-//
-// Replaces the Pallas TPU kernel upliftingtabletennis_tpu/ops/fused_attention.py
-// (`_kernel`, called from `fused_attention_block`). K/V arrive already
-// projected (the sr-conv, its LayerNorm and the kv projection stay torch
-// ops, as they are XLA ops in the JAX model).
-//
-// What bounds it: at the b2 ball shapes (Nkv = 1400) the QK^T and PV
-// products and the B*N*Nkv*heads exponentials dominate; x is read once
-// and the result written once, so bytes are far below the operations.
-//
-// Design. One block of 4 warps owns BM = 64 query rows of one sample; each
-// warp owns 16 of those rows from the LayerNorm to the output store, so
-// the warps synchronise only around the shared K/V chunk loads.
-//   1. LN of the rows (f32) into shared memory as bf16, q = y.Wq + bq (bf16
-//      tensor-core WMMA, f32 accumulation) kept in shared memory.
-//   2. Per head, online softmax streamed over K/V chunks of BN = 64 keys:
-//      K/V of one head is 358 KB at Nkv = 1400, above the 227 KB a block
-//      may use, so it is never held whole. Keys beyond Nkv are zero-filled
-//      and their logits set to -inf (a bound check, no padding of K/V).
-//      The logits, the probabilities and the running output stay in
-//      registers in the layout of the mma.sync.m16n8k16 accumulator (the
-//      FlashAttention-2 arrangement): a row's max and sum are reduced over
-//      the 4 lanes that hold it, the probabilities become the A operand of
-//      the P.V product without leaving registers, and V is stored
-//      transposed in shared memory so its B operand loads as 32-bit words.
-//   3. The heads' outputs are concatenated in shared memory (bf16), then
-//      . Wp + bp, + x, written as bf16.
-// The projections use WMMA with weights read straight from global memory
-// (L2-resident). No TMA, wgmma or pipelining yet.
-#include <cmath>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-namespace {
-
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 64;        // keys per K/V chunk
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int PAD = 8;        // bf16 row padding of shared tiles
-constexpr int LDV = BN + PAD; // row stride of the transposed V chunk
-constexpr float LOG2E = 1.4426950408889634f;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBcol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// max / sum over the 4 lanes of a quad (the lanes that hold one accumulator row)
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a . b for one m16n8k16 tile (bf16 in, f32 accumulation). Fragment
-// layout (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// scratch[16x16] (f32, row-major) = a[16 x K] (shared, bf16) . W[16j:16j+16, :]^T,
-// W (C_out, K) row-major in global memory: the torch Linear layout.
-__device__ __forceinline__ void warp_linear_tile(const bf16* a, int lda, const bf16* w, int K,
-                                                 int j, float* scratch) {
-  FragC acc;
-  wmma::fill_fragment(acc, 0.0f);
-  const bf16* wj = w + (size_t)j * 16 * K;
-  for (int kk = 0; kk < K; kk += 16) {
-    FragA fa;
-    FragBcol fb;
-    wmma::load_matrix_sync(fa, a + kk, lda);
-    wmma::load_matrix_sync(fb, wj + kk, K);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-fused_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                       const bf16* __restrict__ beta, const bf16* __restrict__ wq,
-                       const bf16* __restrict__ bq, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ wp,
-                       const bf16* __restrict__ bp, bf16* __restrict__ out, int N, int C,
-                       int heads, int Nkv, float eps, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldc = C + PAD;
-  constexpr int LDH = HD + PAD;
-  bf16* ys = reinterpret_cast<bf16*>(smem);  // BM x ldc: LN(x), later the concat of heads
-  bf16* qs = ys + BM * ldc;                   // BM x ldc: q
-  bf16* ks = qs + BM * ldc;                   // BN x LDH: K chunk of one head, [key][dim]
-  bf16* vts = ks + BN * LDH;                  // HD x LDV: V chunk transposed, [dim][key]
-  float* scratch_all = reinterpret_cast<float*>(vts + HD * LDV);  // NWARPS x 256
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // accumulator row group / column pair
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * BM;
-  const int wr0 = warp * 16;  // this warp's rows within the block
-  const bf16* xb = x + (size_t)b * N * C;
-  float* scratch = scratch_all + warp * 256;
-
-  // 1. LayerNorm of this warp's rows (two-pass mean/variance in f32).
-  for (int i = 0; i < 16; ++i) {
-    const int n = row0 + wr0 + i;
-    bf16* yrow = ys + (wr0 + i) * ldc;
-    if (n < N) {
-      const bf16* xr = xb + (size_t)n * C;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += __bfloat162float(xr[c]);
-      const float mean = warp_sum(s) / C;
-      float s2 = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = __bfloat162float(xr[c]) - mean;
-        s2 += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(s2) / C + eps);
-      for (int c = lane; c < C; c += 32) {
-        const float y = (__bfloat162float(xr[c]) - mean) * rstd * __bfloat162float(gamma[c]) +
-                        __bfloat162float(beta[c]);
-        yrow[c] = __float2bfloat16(y);
-      }
-    } else {
-      for (int c = lane; c < C; c += 32) yrow[c] = __float2bfloat16(0.f);
-    }
-  }
-  __syncwarp();
-
-  // q = y . Wq + bq (f32 accumulation, stored as bf16)
-  for (int j = 0; j < C / 16; ++j) {
-    warp_linear_tile(ys + wr0 * ldc, ldc, wq, C, j, scratch);
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = 16 * j + (e & 15);
-      qs[(wr0 + r) * ldc + c] = __float2bfloat16(scratch[e] + __bfloat162float(bq[c]));
-    }
-    __syncwarp();
-  }
-
-  // 2. attention, one head at a time, online softmax over K/V chunks.
-  // Logits are kept in base 2: s2 = q.k * scale * log2(e), p = 2^(s2 - m2).
-  const float scale2 = scale * LOG2E;
-  for (int h = 0; h < heads; ++h) {
-    uint32_t qa[HD / 16][4];  // A fragments of this warp's 16 rows of q_h
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const bf16* q0 = qs + (wr0 + g) * ldc + h * HD + kk * 16 + 2 * t;
-      qa[kk][0] = ld32(q0);
-      qa[kk][1] = ld32(q0 + 8 * ldc);
-      qa[kk][2] = ld32(q0 + 8);
-      qa[kk][3] = ld32(q0 + 8 * ldc + 8);
-    }
-    float o[HD / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-    float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of rows g and g + 8
-    float l_lo = 0.f, l_hi = 0.f;              // this lane's part of the running sums
-
-    for (int kv0 = 0; kv0 < Nkv; kv0 += BN) {
-      __syncthreads();  // every warp is done with the previous chunk
-      // K chunk as [key][dim], V chunk as [dim][key]; keys run fastest over
-      // the threads so the transposed V stores do not collide in a bank
-      for (int e = threadIdx.x; e < BN * (HD / 8); e += NTHREADS) {
-        const int j = e % BN, c8 = (e / BN) * 8;
-        const int key = kv0 + j;
-        uint4 kval = make_uint4(0u, 0u, 0u, 0u), vval = make_uint4(0u, 0u, 0u, 0u);
-        if (key < Nkv) {
-          const size_t off = (((size_t)b * Nkv + key) * heads + h) * HD + c8;
-          kval = *reinterpret_cast<const uint4*>(k + off);
-          vval = *reinterpret_cast<const uint4*>(v + off);
-        }
-        *reinterpret_cast<uint4*>(ks + j * LDH + c8) = kval;
-        const uint32_t vw[4] = {vval.x, vval.y, vval.z, vval.w};
-        unsigned short* vcol = reinterpret_cast<unsigned short*>(vts) + c8 * LDV + j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          vcol[(2 * i) * LDV] = static_cast<unsigned short>(vw[i] & 0xffffu);
-          vcol[(2 * i + 1) * LDV] = static_cast<unsigned short>(vw[i] >> 16);
-        }
-      }
-      __syncthreads();
-
-      // S = q_h . K^T: 16 rows x BN keys as BN / 8 accumulator tiles
-      float s[BN / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          const bf16* k0 = ks + (nt * 8 + g) * LDH + kk * 16 + 2 * t;
-          mma_16816(s[nt], qa[kk], ld32(k0), ld32(k0 + 8));
-        }
-      }
-      float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const int key = kv0 + nt * 8 + 2 * t;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool valid = key + (i & 1) < Nkv;
-          s[nt][i] = valid ? s[nt][i] * scale2 : -INFINITY;
-        }
-        mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-      }
-      const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
-      const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
-      const float a_lo = exp2f(m_lo - mn_lo), a_hi = exp2f(m_hi - mn_hi);
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        s[nt][0] = exp2f(s[nt][0] - mn_lo);
-        s[nt][1] = exp2f(s[nt][1] - mn_lo);
-        s[nt][2] = exp2f(s[nt][2] - mn_hi);
-        s[nt][3] = exp2f(s[nt][3] - mn_hi);
-        sum_lo += s[nt][0] + s[nt][1];
-        sum_hi += s[nt][2] + s[nt][3];
-      }
-      l_lo = l_lo * a_lo + sum_lo;
-      l_hi = l_hi * a_hi + sum_hi;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        o[dt][0] *= a_lo;
-        o[dt][1] *= a_lo;
-        o[dt][2] *= a_hi;
-        o[dt][3] *= a_hi;
-      }
-      // O += P . V: the probabilities of keys 16kk..16kk+15 form one A fragment
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          const bf16* v0 = vts + (dt * 8 + g) * LDV + kk * 16 + 2 * t;
-          mma_16816(o[dt], pa, ld32(v0), ld32(v0 + 8));
-        }
-      }
-    }
-
-    // normalise and place the head's output in its columns of the concat
-    const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      bf16* o0 = ys + (wr0 + g) * ldc + h * HD + dt * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(o0) = pack_bf16(o[dt][0] * inv_lo, o[dt][1] * inv_lo);
-      *reinterpret_cast<uint32_t*>(o0 + 8 * ldc) = pack_bf16(o[dt][2] * inv_hi, o[dt][3] * inv_hi);
-    }
-    __syncwarp();
-  }
-
-  // 3. out = x + o . Wp + bp
-  bf16* outb = out + (size_t)b * N * C;
-  for (int j = 0; j < C / 16; ++j) {
-    warp_linear_tile(ys + wr0 * ldc, ldc, wp, C, j, scratch);
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = 16 * j + (e & 15);
-      const int n = row0 + wr0 + r;
-      if (n < N) {
-        const size_t off = (size_t)n * C + c;
-        outb[off] = __float2bfloat16(__bfloat162float(xb[off]) + scratch[e] +
-                                     __bfloat162float(bp[c]));
-      }
-    }
-    __syncwarp();
-  }
-}
-
-size_t smem_bytes(int C, int hd) {
-  return sizeof(bf16) * (2 * (size_t)BM * (C + PAD) + (size_t)BN * (hd + PAD) +
-                         (size_t)hd * LDV) +
-         sizeof(float) * NWARPS * 256;
-}
-
-template <int HD>
-int launch(const void* x, const void* gamma, const void* beta, const void* wq, const void* bq,
-           const void* k, const void* v, const void* wp, const void* bp, void* out, int B,
-           int N, int C, int heads, int Nkv, float eps, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, HD);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + BM - 1) / BM, B);
-  fused_attention_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), static_cast<const bf16*>(wq),
-      static_cast<const bf16*>(bq), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(wp), static_cast<const bf16*>(bp), static_cast<bf16*>(out), N, C,
-      heads, Nkv, eps, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// K1: fused SegFormer attention half-block for Hopper (sm_90a), production
+// entry point (MODE 0). The design note and the kernels are in
+// fused_attention.cuh; the phase-probe variants in fused_attention_probe.cu.
+#include "fused_attention.cuh"
 
 extern "C" {
 
@@ -339,19 +9,29 @@ const char* uttk_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// x, out (B, N, C); gamma, beta, bq, bp (C); wq, wp (C_out, C_in);
-// k, v (B, Nkv, heads, C / heads). All bf16, contiguous, 32-byte aligned.
-// Requires C % 16 == 0 and a head dim C / heads of 16, 32, 48 or 64.
-// Returns a cudaError_t code (0 on success).
+// Dynamic shared memory of one attention block at head dim hd (the formula the
+// launch checks against the 232,448 bytes a block may use), or of one
+// out-projection block (hd = 0).
+long long uttk_fused_attention_smem(int hd) {
+  return static_cast<long long>(hd ? uttk::k1::attn_smem(hd) : uttk::gemm_smem());
+}
+
+// x, out, y, o (B, N, C); gamma, beta, bq, bp (C); wq, wp (C_out, C_in);
+// k, v (B, Nkv, heads, C / heads). All bf16, contiguous, 32-byte aligned; y
+// and o are scratch (LN(x), the head outputs). Requires C % 16 == 0 and a
+// head dim C / heads of 16, 32, 48 or 64. Three launches (LayerNorm,
+// attention, out-projection; two with one head). Returns a cudaError_t code
+// (0 on success).
 int uttk_fused_attention(const void* x, const void* gamma, const void* beta, const void* wq,
                          const void* bq, const void* k, const void* v, const void* wp,
-                         const void* bp, void* out, int B, int N, int C, int heads, int Nkv,
-                         float eps, float scale, void* stream) {
+                         const void* bp, void* y, void* o, void* out, int B, int N, int C,
+                         int heads, int Nkv, float eps, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define UTTK_ATTN_CASE(hd)                                                                \
-  case hd:                                                                                \
-    return launch<hd>(x, gamma, beta, wq, bq, k, v, wp, bp, out, B, N, C, heads, Nkv, eps, \
-                      scale, st);
+  if (heads < 1 || C % heads) return static_cast<int>(cudaErrorInvalidValue);
+#define UTTK_ATTN_CASE(hd)                                                                     \
+  case hd:                                                                                     \
+    return uttk::k1::launch<hd, uttk::k1::FULL>(x, gamma, beta, wq, bq, k, v, wp, bp, y, o, out, \
+                                                B, N, C, heads, Nkv, eps, scale, true, st);
   switch (C / heads) {
     UTTK_ATTN_CASE(16)
     UTTK_ATTN_CASE(32)

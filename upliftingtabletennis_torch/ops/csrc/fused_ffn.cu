@@ -1,259 +1,12 @@
-// K2: fused SegFormer LayerNorm + MixFFN half-block for Hopper (sm_90a).
-//
-//   out = x + b2 + sum_chunks gelu_erf(dw3x3(LN(x) . W1[:, chunk] + b1[chunk])
-//                                      + bdw[chunk]) . W2[chunk, :]
-//
-// Replaces the Pallas TPU kernel upliftingtabletennis_tpu/ops/fused_ffn.py
-// (`_kernel`, called from `fused_ln_ffn`; its v2/v3 variants compute the
-// same function in TPU lane layouts). The 3x3 depthwise conv zero-pads the
-// HIDDEN tensor at the image border, so hidden values outside the image are
-// zero (not fc1 of a zero x).
-//
-// What bounds it: the two 1x1 products (4 * N * C * 4C operations per
-// sample) on the tensor cores; the hidden tensor (4C wide) never reaches
-// device memory, so bytes are one read of x and one write of out.
-//
-// Design. The TPU kernel holds a row tile plus halo of the whole 4C hidden
-// tensor in VMEM; at stage 4 of b2 that is ~1.2 MB, far above the 227 KB a
-// Hopper block may use. The depthwise conv is per channel, so the hidden
-// dimension is split into chunks of HC = 64 channels:
-//   * a block of 8 warps owns a TH x TW output tile of one sample, plus a
-//     1-pixel halo on all four sides; LN(x) of the (TH+2)(TW+2) halo pixels
-//     is kept in shared memory as bf16 (fc1 is recomputed on the halo, as the
-//     TPU kernel recomputes its halo rows);
-//   * per chunk: fc1 on the halo (bf16 WMMA, f32 accumulation), + b1,
-//     rounded to bf16 as the TPU kernel rounds the hidden tensor, and set to
-//     zero outside the image; dw3x3 + bdw and exact GELU (erff), rounded to
-//     bf16; then fc2 of the chunk accumulated into the block's TH*TW x C
-//     output, which stays in registers (WMMA accumulators, a fixed share of
-//     the output tiles per warp) across all chunks;
-//   * epilogue: + b2 + x, written as bf16.
-// C and the tile are template parameters (one instantiation per SegFormer
-// width), so every loop over C unrolls. Any H and W: ragged edge tiles are
-// masked. Weights are read from global memory (L2-resident) into WMMA
-// fragments. No TMA, wgmma or pipelining yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// K2: fused SegFormer LayerNorm + MixFFN half-block for Hopper (sm_90a),
+// production entry point (MODE 0). The design note and the kernels are in
+// fused_ffn.cuh; the phase-probe variants in fused_ffn_probe.cu. The plan
+// (route, tile width) is chosen in Python (ops/fused_ffn.py `ffn_plan`) and
+// passed here.
+#include "fused_ffn.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-namespace {
-
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int HC = 64;          // hidden channels per chunk
-constexpr int PAD = 8;          // bf16 row padding of shared tiles
-constexpr int LDG = HC + PAD;   // row stride of the hidden-chunk tiles
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBcol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int C, int TH, int TW>
-struct Tile {
-  static constexpr int HW2 = TW + 2;
-  static constexpr int PH = (TH + 2) * HW2;       // halo pixels
-  static constexpr int MP = (PH + 15) / 16 * 16;  // rounded up to whole 16-row fragments
-  static constexpr int P = TH * TW;               // output pixels
-  static constexpr int LDY = C + PAD;
-  static constexpr int MT1 = MP / 16, F1 = MT1 * (HC / 16), NF1 = (F1 + NWARPS - 1) / NWARPS;
-  static constexpr int MT2 = P / 16, F2 = MT2 * (C / 16), NF2 = F2 / NWARPS;
-  static_assert(P % 16 == 0 && C % 32 == 0 && F2 % NWARPS == 0, "unsupported tile");
-  static constexpr size_t smem =
-      sizeof(bf16) * ((size_t)MP * LDY + (size_t)MP * LDG + (size_t)P * LDG) +
-      sizeof(float) * (NWARPS * 256 + 11 * HC) + MP;
-};
-
-template <int C, int TH, int TW>
-__global__ void __launch_bounds__(NTHREADS)
-fused_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                 const bf16* __restrict__ beta, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, const bf16* __restrict__ dw,
-                 const bf16* __restrict__ bdw, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, bf16* __restrict__ out, int H, int W, int HID,
-                 float eps) {
-  using T = Tile<C, TH, TW>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);  // MP x LDY: LN(x) of the halo tile
-  bf16* hs = ys + T::MP * T::LDY;             // MP x LDG: fc1 + b1 of the chunk, 0 outside
-  bf16* gs = hs + T::MP * LDG;                // P x LDG: gelu(dw(...)) of the chunk
-  float* scratch_all = reinterpret_cast<float*>(gs + T::P * LDG);  // NWARPS x 256
-  float* dws = scratch_all + NWARPS * 256;    // 9 x HC: depthwise taps of the chunk
-  float* bdws = dws + 9 * HC;                 // HC
-  float* b1s = bdws + HC;                     // HC
-  unsigned char* inside = reinterpret_cast<unsigned char*>(b1s + HC);  // MP: halo pixel in image
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int r0 = (blockIdx.x / tiles_x) * TH, c0 = (blockIdx.x % tiles_x) * TW;
-  const int b = blockIdx.y;
-  const size_t plane = (size_t)H * W * C;
-  const bf16* xb = x + (size_t)b * plane;
-  float* scratch = scratch_all + warp * 256;
-
-  // LN(x) of every halo pixel inside the image; zero elsewhere
-  for (int p = tid; p < T::MP; p += NTHREADS) {
-    const int gy = r0 - 1 + p / T::HW2, gx = c0 - 1 + p % T::HW2;
-    inside[p] = p < T::PH && gy >= 0 && gy < H && gx >= 0 && gx < W;
-  }
-  for (int p = warp; p < T::MP; p += NWARPS) {
-    bf16* yrow = ys + p * T::LDY;
-    const int gy = r0 - 1 + p / T::HW2, gx = c0 - 1 + p % T::HW2;
-    if (p < T::PH && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const bf16* xr = xb + ((size_t)gy * W + gx) * C;
-      float xv[C / 32];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < C / 32; ++i) {
-        xv[i] = __bfloat162float(xr[lane + 32 * i]);
-        s += xv[i];
-      }
-      const float mean = warp_sum(s) / C;
-      float s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < C / 32; ++i) s2 += (xv[i] - mean) * (xv[i] - mean);
-      const float rstd = rsqrtf(warp_sum(s2) / C + eps);
-#pragma unroll
-      for (int i = 0; i < C / 32; ++i) {
-        const int c = lane + 32 * i;
-        yrow[c] = __float2bfloat16((xv[i] - mean) * rstd * __bfloat162float(gamma[c]) +
-                                   __bfloat162float(beta[c]));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < C / 32; ++i) yrow[lane + 32 * i] = __float2bfloat16(0.f);
-    }
-  }
-
-  FragC acc[T::NF2];  // this warp's share of the output tile, across all chunks
-#pragma unroll
-  for (int i = 0; i < T::NF2; ++i) wmma::fill_fragment(acc[i], 0.0f);
-
-  for (int hc0 = 0; hc0 < HID; hc0 += HC) {
-    for (int e = tid; e < 9 * HC; e += NTHREADS)
-      dws[e] = __bfloat162float(dw[(e / HC) * HID + hc0 + e % HC]);
-    if (tid < HC) {
-      bdws[tid] = __bfloat162float(bdw[hc0 + tid]);
-      b1s[tid] = __bfloat162float(b1[hc0 + tid]);
-    }
-    __syncthreads();
-
-    // fc1 of the chunk on the halo tile; + b1, bf16, zero outside the image
-#pragma unroll
-    for (int i = 0; i < T::NF1; ++i) {
-      const int f = warp * T::NF1 + i;
-      if (f < T::F1) {
-        const int mt = f % T::MT1, nt = f / T::MT1;
-        FragC h;
-        wmma::fill_fragment(h, 0.0f);
-        const bf16* wcol = w1 + (size_t)(hc0 + nt * 16) * C;
-#pragma unroll
-        for (int kk = 0; kk < C; kk += 16) {
-          FragA fa;
-          FragBcol fb;
-          wmma::load_matrix_sync(fa, ys + mt * 16 * T::LDY + kk, T::LDY);
-          wmma::load_matrix_sync(fb, wcol + kk, C);
-          wmma::mma_sync(h, fa, fb, h);
-        }
-        wmma::store_matrix_sync(scratch, h, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int p = mt * 16 + (e >> 4), ch = nt * 16 + (e & 15);
-          hs[p * LDG + ch] = __float2bfloat16(inside[p] ? scratch[e] + b1s[ch] : 0.f);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-
-    // depthwise 3x3 (the hidden tensor is zero outside the image) + bdw, gelu
-    for (int e = tid; e < T::P * HC; e += NTHREADS) {
-      const int o = e / HC, j = e % HC;
-      const int oy = o / TW, ox = o % TW;
-      const bf16* h0 = hs + (oy * T::HW2 + ox) * LDG + j;
-      float s = bdws[j];
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          s += __bfloat162float(h0[(dy * T::HW2 + dx) * LDG]) * dws[(dy * 3 + dx) * HC + j];
-      gs[o * LDG + j] = __float2bfloat16(0.5f * s * (1.f + erff(s * 0.70710678118654752f)));
-    }
-    __syncthreads();
-
-    // fc2 of the chunk into the register accumulators
-#pragma unroll
-    for (int i = 0; i < T::NF2; ++i) {
-      const int f = warp * T::NF2 + i;
-      const int mt = f % T::MT2, nt = f / T::MT2;
-      const bf16* wrow = w2 + (size_t)(nt * 16) * HID + hc0;
-#pragma unroll
-      for (int kk = 0; kk < HC; kk += 16) {
-        FragA fa;
-        FragBcol fb;
-        wmma::load_matrix_sync(fa, gs + mt * 16 * LDG + kk, LDG);
-        wmma::load_matrix_sync(fb, wrow + kk, HID);
-        wmma::mma_sync(acc[i], fa, fb, acc[i]);
-      }
-    }
-    // the next chunk's first writes (dws, hs) touch nothing fc2 reads, and
-    // its fc1 is followed by a barrier before gs is written again
-  }
-
-  // out = x + acc + b2 for the tile's pixels inside the image
-  bf16* outb = out + (size_t)b * plane;
-#pragma unroll
-  for (int i = 0; i < T::NF2; ++i) {
-    const int f = warp * T::NF2 + i;
-    const int mt = f % T::MT2, nt = f / T::MT2;
-    wmma::store_matrix_sync(scratch, acc[i], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int o = mt * 16 + (e >> 4), c = nt * 16 + (e & 15);
-      const int gy = r0 + o / TW, gx = c0 + o % TW;
-      if (gy < H && gx < W) {
-        const size_t off = ((size_t)gy * W + gx) * C + c;
-        outb[off] = __float2bfloat16(__bfloat162float(xb[off]) + scratch[e] +
-                                     __bfloat162float(b2[c]));
-      }
-    }
-    __syncwarp();
-  }
-}
-
-template <int C, int TH, int TW>
-int launch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
-           const void* dw, const void* bdw, const void* w2, const void* b2, void* out, int B,
-           int H, int W, int HID, float eps, cudaStream_t stream) {
-  const size_t smem = Tile<C, TH, TW>::smem;
-  cudaError_t err = cudaFuncSetAttribute(fused_ffn_kernel<C, TH, TW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), B);
-  fused_ffn_kernel<C, TH, TW><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(dw), static_cast<const bf16*>(bdw),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), H, W,
-      HID, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// (C, TH, TW) instantiated: the SegFormer b0/b2 widths
-#define UTTK_FFN_WIDTHS(X) \
-  X(32, 8, 16) X(64, 8, 16) X(128, 8, 16) X(160, 8, 8) X(256, 8, 8) X(320, 8, 8) X(512, 4, 8)
-
-}  // namespace
+// the widths the fused route is instantiated for (the split route takes any C % 16 == 0)
+#define UTTK_FFN_FUSED_WIDTHS(X) X(32) X(64)
 
 extern "C" {
 
@@ -261,34 +14,40 @@ const char* uttk_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// The output tile (rows, cols) this kernel uses at width C; 0 if C is not supported.
-int uttk_fused_ffn_tile(int C, int* th, int* tw) {
-#define UTTK_TILE(c, h, w) \
-  if (C == c) {            \
-    *th = h;               \
-    *tw = w;               \
-    return 1;              \
-  }
-  UTTK_FFN_WIDTHS(UTTK_TILE)
-#undef UTTK_TILE
-  return 0;
+// Dynamic shared memory of one block of a launch of the plan (the formulas the
+// launches check against the 232,448 bytes a block may use): what = 0 the
+// fused tile kernel (fused) or the stencil kernel (split), 1 the split
+// route's products (fc1 and fc2). -1 for a fused width without an
+// instantiation.
+long long uttk_fused_ffn_smem(int C, int fused, int tw, int what) {
+  if (what == 1) return static_cast<long long>(uttk::gemm_smem());
+  if (!fused) return static_cast<long long>(uttk::k2::stencil_smem(tw));
+#define UTTK_SMEM(c) \
+  if (C == c) return static_cast<long long>(uttk::k2::tile_smem(c, tw));
+  UTTK_FFN_FUSED_WIDTHS(UTTK_SMEM)
+#undef UTTK_SMEM
+  return -1;
 }
 
 // x, out (B, H*W, C); gamma, beta, b2 (C); w1 (HID, C); b1, bdw (HID);
-// dw (9, HID) with tap index 3*dy + dx; w2 (C, HID). All bf16, contiguous,
-// 32-byte aligned. C must be one of the instantiated widths, HID % 64 == 0.
-// Returns a cudaError_t code (0 on success).
+// dw (9, HID) with tap index 3*dy + dx; w2 (C, HID); work: scratch of
+// B*H*W*(C + 2 HID) bf16 for the split route (may be null when fused). All
+// bf16, contiguous, 32-byte aligned. fused: C must be an instantiated width;
+// split: C % 16 == 0. tw 8, 16 or 32; HID % 64 == 0. The fused route is one
+// launch, the split route four. Returns a cudaError_t code (0 on success).
 int uttk_fused_ffn(const void* x, const void* gamma, const void* beta, const void* w1,
                    const void* b1, const void* dw, const void* bdw, const void* w2,
-                   const void* b2, void* out, int B, int H, int W, int C, int HID, float eps,
-                   void* stream) {
+                   const void* b2, void* work, void* out, int B, int H, int W, int C, int HID,
+                   int fused, int tw, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (HID % HC) return static_cast<int>(cudaErrorInvalidValue);
-#define UTTK_LAUNCH(c, h, w)                                                             \
-  if (C == c)                                                                            \
-    return launch<c, h, w>(x, gamma, beta, w1, b1, dw, bdw, w2, b2, out, B, H, W, HID, eps, \
-                           st);
-  UTTK_FFN_WIDTHS(UTTK_LAUNCH)
+  if (!fused)
+    return uttk::k2::launch_split<uttk::k2::FULL>(x, gamma, beta, w1, b1, dw, bdw, w2, b2, work,
+                                                  out, B, H, W, C, HID, tw, eps, st);
+#define UTTK_LAUNCH(c)                                                                         \
+  if (C == c)                                                                                  \
+    return uttk::k2::launch_fused<c, uttk::k2::FULL>(x, gamma, beta, w1, b1, dw, bdw, w2, b2, out, \
+                                                     B, H, W, HID, tw, eps, st);
+  UTTK_FFN_FUSED_WIDTHS(UTTK_LAUNCH)
 #undef UTTK_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

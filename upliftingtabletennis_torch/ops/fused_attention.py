@@ -9,7 +9,10 @@ with K/V already projected (the spatially reduced keys/values, computed
 outside with torch ops as the JAX model computes them with XLA).
 
 `fused_attention_block` dispatches on the tensor's device: CUDA tensors go
-to the hand-written Hopper kernel (`csrc/fused_attention.cu`), CPU tensors
+to the hand-written Hopper kernels (`csrc/fused_attention.cu`: LN(x), an
+attention kernel per (128-row tile, head, sample) writing the head outputs O,
+then the out-projection with the residual; `attention_plan` gives the
+launches' grids and shared memory; one count per call), CPU tensors
 to `attention_block_plain`, the plain PyTorch version of the same function
 that the tests hold against the JAX kernel. A build or launch failure
 raises; nothing falls back to the plain version on CUDA.
@@ -28,16 +31,22 @@ layout (out, in), which is `wq.t()` (no copy for `linear.weight.t()`).
 from __future__ import annotations
 
 import ctypes
+import functools
+from types import MappingProxyType
+from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 
 from upliftingtabletennis_torch.ops import _build
 
-__all__ = ["fused_attention_block", "fused_attention_block_trainable", "attention_block_plain"]
+__all__ = ["fused_attention_block", "fused_attention_block_trainable", "attention_block_plain",
+           "attention_plan"]
 
 _SOURCE = "fused_attention.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_KV_CHUNK = 64  # keys per K/V chunk (fused_attention.cuh BKV)
+_KV_STAGES = 3  # depth of the K/V ring (KV_STAGES)
 
 
 def attention_block_plain(x, heads, gamma, beta, wq, bq, k, v, wp, bp, eps=1e-6):
@@ -61,22 +70,45 @@ def attention_block_plain(x, heads, gamma, beta, wq, bq, k, v, wp, bp, eps=1e-6)
     return (xf + o.float() @ wp.float() + bp.float()).to(dt)
 
 
-def _lib():
-    lib = _build.library(_SOURCE)
-    fn = lib.uttk_fused_attention
+def _lib(source=_SOURCE, entry="uttk_fused_attention", nargs=0):
+    lib = _build.library(source)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 5 + [_F, _F, _P]
+        fn.argtypes = [_I] * nargs + [_P] * 12 + [_I] * 5 + [_F, _F, _P]
         fn.restype = _I
     return lib
 
 
-def _launch(x, heads, gamma, beta, wq, bq, k, v, wp, bp, eps):
+@functools.lru_cache(maxsize=256)
+def attention_plan(B: int, N: int, C: int, heads: int) -> Mapping:
+    """How K1 runs at these shapes: its launches (the LayerNorm over 32-row tiles, the
+    attention kernel over (128-row tile, head, sample) and, with several heads, the
+    out-projection over 128 x 128 tiles), their grids and the dynamic shared memory of
+    those that use it, by the formulas the C side checks (`attn_smem`, `gemm_smem`).
+    Raises for a shape the kernel does not take."""
+    hd = C // heads if heads and C % heads == 0 else 0
+    if C % 16 or hd not in (16, 32, 48, 64) or B < 1 or N < 1:
+        raise ValueError(f"kernel needs C % 16 == 0 and a head dim of 16, 32, 48 or 64; "
+                         f"got C={C}, heads={heads}")
+    tile = _build.GEMM_TILE
+    return MappingProxyType({
+        "hd": hd, "rows_per_block": _build.BM,
+        "ln_grid": (-(-(B * N) // _build.LN_ROWS),),
+        "attention_grid": (-(-N // _build.BM), heads, B),
+        "attention_smem": 2 * (2 * (_build.BM + hd) * _build.LDK
+                               + _KV_STAGES * 2 * _KV_CHUNK * (hd + _build.PAD)),
+        # one head: the attention kernel applies the out-projection itself
+        "proj_grid": () if heads == 1 else (-(-(B * N) // tile), -(-C // tile)),
+        "proj_smem": 0 if heads == 1 else _build.gemm_smem()})
+
+
+def _operands(x, heads, gamma, beta, wq, bq, k, v, wp, bp):
     B, N, C = x.shape
     hd = C // heads
     Nkv = k.shape[1]
-    if C % 16 or hd not in (16, 32, 48, 64) or Nkv < 1:
-        raise ValueError(f"kernel needs C % 16 == 0, a head dim of 16, 32, 48 or 64 and "
-                         f"Nkv >= 1; got C={C}, hd={hd}, Nkv={Nkv}")
+    if Nkv < 1:
+        raise ValueError(f"kernel needs Nkv >= 1; got Nkv={Nkv}")
+    attention_plan(B, N, C, heads)  # raises for a shape the kernel does not take
     args = [
         _build.operand(x, "x", (B, N, C)),
         _build.operand(gamma, "gamma", (C,)), _build.operand(beta, "beta", (C,)),
@@ -86,14 +118,27 @@ def _launch(x, heads, gamma, beta, wq, bq, k, v, wp, bp, eps):
     ]
     if any(a.device != x.device for a in args):
         raise ValueError("fused_attention_block: all operands must be on x's device")
-    out = torch.empty_like(args[0])
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.uttk_fused_attention(
-            *[a.data_ptr() for a in args], out.data_ptr(),
-            B, N, C, heads, Nkv, float(eps), float(hd ** -0.5), stream)
-    _build.check(lib, status, "fused_attention_block")
+    return args, (B, N, C, heads, Nkv)
+
+
+def run_kernel(lib, entry, lead, args, dims, eps, what):
+    """Launch K1's C entry `entry` (`lead`: the arguments before the pointers, the probe's
+    mode) with its scratch (LN(x) and the head outputs O); returns the output."""
+    B, N, C, heads, Nkv = dims
+    x = args[0]
+    scratch = torch.empty((2, B, N, C), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    ptrs = [a.data_ptr() for a in args] + [scratch[0].data_ptr(), scratch[1].data_ptr(),
+                                           out.data_ptr()]
+    status = _build.call_on_device(x, lambda stream: getattr(lib, entry)(
+        *lead, *ptrs, B, N, C, heads, Nkv, float(eps), float((C // heads) ** -0.5), stream))
+    _build.check(lib, status, what)
+    return out
+
+
+def _launch(x, heads, gamma, beta, wq, bq, k, v, wp, bp, eps):
+    args, dims = _operands(x, heads, gamma, beta, wq, bq, k, v, wp, bp)
+    out = run_kernel(_lib(), "uttk_fused_attention", (), args, dims, eps, "fused_attention_block")
     fused_attention_block.launches += 1
     return out
 

@@ -1,0 +1,2 @@
+"""Measurement tools of the port: the phase probes of K1 and K2 (`probe_attn_phases`,
+`probe_ffn_phases`), counterparts of the JAX package's `tools/probe_*_phases.py`."""
