@@ -8,6 +8,8 @@ Phases (each prints one line with what it measured and the seconds elapsed):
 1. env      the card's name and power limit (nvidia-smi);
 2. build    compile the port's CUDA kernels from `upliftingtabletennis_torch/ops/csrc`
             into `upliftingtabletennis_torch/_build/` (one nvcc per source, in parallel);
+            count the warpgroup products, TMA loads and stores and mma.sync products in
+            K3's and K5's SASS (`cuobjdump`, where the toolkit has it);
 3. k1       K1 (fused attention half-block) against its plain PyTorch version, run in
             f32 on the same bf16 inputs, at the four SegFormer-b2 stage shapes of the
             1600x896 ball model, on two input sets (keys of std 1, and of std 3 where the
@@ -32,29 +34,38 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             their plain versions (f32 on the same bf16 inputs) at every distinct
             (Ci, Co, H, W, residual) one HRNet forward launches at chunk 8 and 1280x704
             (recorded from one forward of each HRNet on the meta device), plus two
-            ragged shapes; kernel, plain and stock (channels_last cuDNN + eager
-            epilogue) times, launches per forward, the bound;
+            ragged shapes, each along its launch plan (`conv_plan`: route, tile, channel
+            group, ring depth); planted faults simulated with the plain version (the halo
+            rows at the tile seams zeroed, one tap left out, one tile from a stale ring
+            stage) that the limit must reject; kernel, plain and stock (channels_last
+            cuDNN + eager epilogue) times, per call and pipelined, launches per forward,
+            the bound;
 7. hrnet    WASB and TableHRNet at 1280x704, chunk 8, seeded random weights with
-            perturbed BatchNorm statistics: heatmaps of the kernel path (bf16) against
-            the plain path (f32), and 40 K5a / 14 K5b launches per forward;
+            perturbed BatchNorm statistics: the K5 route of each conv shape, heatmaps of
+            the kernel path (bf16) against the plain path (f32), and 40 K5a / 14 K5b
+            launches per forward;
 8. detectors the four detectors of the main path through `hub.ball_detection` and
             `hub.table_detection` at chunk 8 on the same synthetic 1920x1080 frames (b2
             ball and WASB on the triplets, b2 table and HRNet table on the centre
             frames), with all four kernels' launch counts reset just before and read
-            just after; frames/s of each and of the four together; each detector's
+            just after, and the K5 routes; frames/s of each and of the four together;
+            each detector's
             heatmaps on one chunk of 8 against a `kernels=False` copy in f32 with the
             same weights; then both `filter_trajectory` calls;
 9. k3       K3 (flash cross-attention, `ops/flash_attention.py`) against its plain version
             (f32 on the same bf16 inputs) at the four b2 ToMe stage shapes at chunk 8 and
             1600x896, one b0 shape (hd 32, Nkv 2040) and one ragged shape, at K3's own
-            limit, which must also reject two faults simulated with the plain version (a
-            skipped key chunk; the ragged shape's tail unmasked); kernel, plain and
-            `F.scaled_dot_product_attention` times; the bound; and the gradients of
+            limit, which must also reject three faults simulated with the plain version (a
+            skipped key chunk; one chunk read from the stage a ring depth earlier; the
+            ragged shape's tail unmasked); kernel, plain and
+            `F.scaled_dot_product_attention` times, per call and pipelined; K3's host time
+            per call; its route; the bound; and the gradients of
             `flash_cross_attention_diff` (K3 forward, dense recompute backward) against the
             plain version's at one b2 ToMe shape;
 10. tome    the b2 ball detector with ToMe at ratio 0.4 (`SegFormerNet(tome_ratio=0.4)`
             with the detector's weights) on the 16 triplets at chunk 8: 16 K3, 0 K1 and
-            16 K2 launches per forward, frames/s, peak device memory with and without ToMe;
+            16 K2 launches per forward, K3's route, frames/s, peak device memory with and
+            without ToMe;
             K3 against its plain version on the (q, k, v) of the first block of each stage;
             heatmaps against a `kernels=False` copy in bf16 with its own merge plans and
             with the kernel path's; planted faults (wrong merge partners, a K3 that skips a
@@ -143,7 +154,8 @@ TOME_RATIO = 0.4  # the ratio of the JAX package's own ToMe test (tests/test_tok
 TOME_PLANS_PER_FORWARD = 16  # merging starts at N >= 256: every b2 block at 1600x896
 # K3 shapes: (B, Nq, Nkv, heads, hd, depth). The four b2 stages at chunk 8, 1600x896,
 # with ToMe at 0.4 (Nq = N - int(0.4 N)); b0 stage 1 at 1920x1088 (130,560 tokens); ragged.
-K3_RAGGED = (2, 1037, 777, 2, 64)  # the last chunk holds 9 keys and 55 zero-filled slots
+K3_RAGGED = (2, 1037, 777, 2, 64)  # the last 128-key chunk holds 9 keys and 119 zero-filled
+K3_ROUTE = "tma+wgmma"  # K3's one route: TMA ring, wgmma products, ping-pong warpgroups
 K3_SHAPES = [(8, 53760, 1400, 1, 64, 3), (8, 13440, 1400, 2, 64, 4), (8, 3360, 1400, 5, 64, 6),
              (8, 840, 1400, 8, 64, 3), (8, 78336, 2040, 1, 32, 0), (*K3_RAGGED, 0)]
 
@@ -240,6 +252,22 @@ ZERO_GRAD = ("backbone.stage_norm_3.bias", "decode_head.linear_c0.bias",
 ZERO_GRAD_REL = 1e-3
 TRAIN_STEPS = 10
 K3_GRAD_SHAPE = (2, 13440, 1400, 2, 64)  # b2 ToMe stage 2 at batch 2
+
+
+def sass_counts(_build, sources, ops=("HGMMA", "UTMALDG", "UTMASTG", "HMMA")):
+    """{source: {SASS instruction: count}} of built libraries, by `cuobjdump -sass` from
+    the toolkit (warpgroup products, TMA loads and stores, mma.sync); {} without it."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    counts = {}
+    for src in sources:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(src))], capture_output=True,
+                              text=True, check=True).stdout
+        counts[src] = {op: len([w for w in sass.split() if w.split(".")[0] == op]) for op in ops}
+    return counts
 
 
 def log(phase: str, **kv) -> None:
@@ -361,6 +389,35 @@ def k3_check(torch, got, q, k, v, want, scale=None):
     ok = bool((err <= limit).all().item())
     worst = (err / limit.clamp_min(1e-30)).max().item()
     return err.max().item(), worst, ok
+
+
+def k3_stale_keys(Nkv):
+    """Key indices of K3 with one stale ring stage: the chunk STAGES chunks after the first
+    holds the first chunk's keys (what a consumer reads when it waits on the wrong mbarrier
+    parity), and the keys beyond it are as they are."""
+    import torch
+
+    from upliftingtabletennis_torch.ops.flash_attention import CHUNK, STAGES
+
+    idx = torch.arange(Nkv)
+    lo = CHUNK * STAGES
+    n = min(CHUNK, Nkv - lo)
+    if n > 0:
+        idx[lo:lo + n] = torch.arange(n)
+    return idx
+
+
+def host_us_per_call(torch, fn, calls: int = 20) -> float:
+    """Host microseconds per call issued back to back (argument checks, tensor maps, the
+    launch): the host clock around `calls` calls after a synchronise, without one inside."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def k1_inputs(torch, gen, B, N, C, heads, Nkv, k_std=1.0):
@@ -659,8 +716,12 @@ def run_k3(torch, F, ops, gen):
         keep = torch.cat([torch.arange(64), torch.arange(128, Nkv)]).to(DEVICE)
         faults = {"chunk": cross_attention_plain(q.float(), k[:, keep].float(),
                                                  v[:, keep].float()).to(q.dtype)}
+        # a wrong mbarrier parity: one chunk's K/V read from the stage a ring depth earlier
+        stale = k3_stale_keys(Nkv).to(DEVICE)
+        faults["stale"] = cross_attention_plain(q.float(), k[:, stale].float(),
+                                                v[:, stale].float()).to(q.dtype)
         if (B, Nq, Nkv, heads, hd) == K3_RAGGED:
-            pad = torch.zeros(B, -Nkv % 64, heads, hd, device=DEVICE, dtype=k.dtype)
+            pad = torch.zeros(B, -Nkv % 128, heads, hd, device=DEVICE, dtype=k.dtype)
             faults["tail"] = cross_attention_plain(
                 q.float(), torch.cat([k, pad], 1).float(), torch.cat([v, pad], 1).float()
             ).to(q.dtype)
@@ -674,13 +735,19 @@ def run_k3(torch, F, ops, gen):
         lib_err = (library().transpose(1, 2).float() - got.float()).abs().max().item()
         ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
             time_ms(torch, library)
+        ms_pipe, lib_pipe = pipelined_ms(torch, kernel), pipelined_ms(torch, library)
+        host_us = host_us_per_call(torch, kernel)
         bound_ms, bound_by = k3_bound(B, Nq, Nkv, heads, hd)
-        e = dict(shape=dict(B=B, Nq=Nq, Nkv=Nkv, heads=heads, hd=hd), depth=depth, ms=ms,
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 max_abs_err=max_abs, err_over_limit=worst, fault_err_over_limit=fault_worst,
+        e = dict(shape=dict(B=B, Nq=Nq, Nkv=Nkv, heads=heads, hd=hd), depth=depth,
+                 route=K3_ROUTE, ms=ms, ms_pipelined=ms_pipe, host_us=host_us,
+                 plain_ms=plain_ms, library_ms=lib_ms, library_ms_pipelined=lib_pipe,
+                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs,
+                 err_over_limit=worst, fault_err_over_limit=fault_worst,
                  library_vs_kernel_max_abs=lib_err)
-        log("k3", B=B, Nq=Nq, Nkv=Nkv, heads=heads, hd=hd, max_abs_err=f"{max_abs:.4g}",
-            err_over_limit=f"{worst:.4g}", ms=f"{ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+        log("k3", B=B, Nq=Nq, Nkv=Nkv, heads=heads, hd=hd, route=K3_ROUTE,
+            max_abs_err=f"{max_abs:.4g}", err_over_limit=f"{worst:.4g}", ms=f"{ms:.4f}",
+            ms_pipelined=f"{ms_pipe:.4f}", host_us=f"{host_us:.1f}", sdpa_ms=f"{lib_ms:.4f}",
+            sdpa_ms_pipelined=f"{lib_pipe:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             fault_err_over_limit=json.dumps({n: round(w, 3) for n, w in fault_worst.items()}),
             ok=ok)
@@ -933,6 +1000,59 @@ def hrnet_conv_shapes(torch):
     return shapes
 
 
+def k5_routes(torch):
+    """{"ks Ci->Co": "route th x tw / nb / depth"} of the stride-1 convs both HRNets run:
+    the launch plan `conv_plan` gives each on the main path."""
+    from upliftingtabletennis_torch.ops.fused_conv import conv_plan
+
+    routes = {}
+    for ks, ci, co, *_ in hrnet_conv_shapes(torch):
+        p = conv_plan(ks, ci, co)
+        routes[f"{ks}x{ks} {ci}->{co}"] = f"{p.route} {p.th}x{p.tw} nb{p.nb} d{p.depth}"
+    return routes
+
+
+def k5_err_over_limit(torch, got, want):
+    """max |got - want| / (K5_ATOL + K5_RTOL |want|): above 1 where K5's limit fails."""
+    err = (got.float() - want).abs()
+    return (err / (K5_ATOL + K5_RTOL * want.abs())).max().item()
+
+
+def k5_faults(torch, plain_fn, plan, x, w, b, res, relu, want):
+    """K5's planted faults, simulated with the plain version and rounded to bf16 as the
+    kernel rounds, each as its max err / limit against `want` (which must exceed 1):
+    `halo` (3x3 only) the halo rows at the seams of the plan's row tiles zeroed, as if
+    the halo were not loaded; `tap` one tap's weights left out (the centre row's right
+    tap; a 1x1 conv's only tap); `stale` the output tile at (row tile 0, column tile 1)
+    computed from the previous tile's input and residual, as from a stale ring stage
+    (the tile at (1, 0) from the one above where the image is one tile wide)."""
+    def plain(xs, ws, rs):
+        return plain_fn(xs.float(), ws.float(), b.float(), None if rs is None else rs.float(),
+                        relu=relu).to(torch.bfloat16)
+
+    faults = {}
+    if w.ndim == 4:
+        th = plan.th
+        bands = [plain(x[:, i:i + th], w, None if res is None else res[:, i:i + th])
+                 for i in range(0, x.shape[1], th)]
+        faults["halo"] = k5_err_over_limit(torch, torch.cat(bands, 1), want)
+        del bands
+    w_tap = w.clone()
+    if w.ndim == 4:
+        w_tap[1, 2] = 0
+    else:
+        w_tap.zero_()
+    faults["tap"] = k5_err_over_limit(torch, plain(x, w_tap, res), want)
+    tw, th = plan.tw, plan.th
+    stale = want.clone()
+    if want.shape[2] >= 2 * tw:
+        stale[:, :th, tw:2 * tw] = want[:, :th, :tw]
+    else:  # one column of tiles: the previous tile is the one above
+        stale[:, th:2 * th, :tw] = want[:, :th, :tw]
+    faults["stale"] = k5_err_over_limit(torch, stale, want)
+    return faults
+
+
 def run_k5(torch, F, gen):
     from upliftingtabletennis_torch.ops import fused_conv as k5
 
@@ -964,6 +1084,8 @@ def run_k5(torch, F, gen):
         torch.cuda.synchronize()
         want = plain()
         max_abs, max_rel, ok = compare(torch, got, want, K5_ATOL, K5_RTOL)
+        plan = k5.conv_plan(ks, Ci, Co)
+        faults = k5_faults(torch, plain_fn, plan, x, w, b, res, relu, want)
         del want, got
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
         w_oihw = (w if ks == 3 else w[None, None]).permute(3, 2, 0, 1).contiguous(
@@ -978,19 +1100,30 @@ def run_k5(torch, F, gen):
 
         ms, plain_ms, stock_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=3, warmup=1), \
             time_ms(torch, stock)
+        ms_pipe, stock_pipe = pipelined_ms(torch, kernel), pipelined_ms(torch, stock)
+        host_us = host_us_per_call(torch, kernel)
         bound_ms, bound_by = k5_bound(ks, B, H, W, Ci, Co, has_res)
         name = "conv3x3_bias_act" if ks == 3 else "conv1x1_bias_act"
         e = dict(kernel=name, shape=dict(B=B, H=H, W=W, Ci=Ci, Co=Co, residual=has_res,
                                          relu=relu),
-                 per_forward={"wasb": n_wasb, "hrnet": n_table}, ms=ms, plain_ms=plain_ms,
-                 library_ms=stock_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 max_abs_err=max_abs, max_rel_err=max_rel)
+                 per_forward={"wasb": n_wasb, "hrnet": n_table}, plan=plan._asdict(),
+                 route=plan.route, ms=ms, ms_pipelined=ms_pipe, host_us=host_us, plain_ms=plain_ms,
+                 library_ms=stock_ms, library_ms_pipelined=stock_pipe, bound_ms=bound_ms,
+                 bound_by=bound_by, max_abs_err=max_abs, max_rel_err=max_rel,
+                 fault_err_over_limit=faults)
         log("k5", kernel=name, Ci=Ci, Co=Co, H=H, W=W, res=has_res, per_fwd=f"{n_wasb}/{n_table}",
-            max_abs_err=f"{max_abs:.4g}", ms=f"{ms:.4f}", stock_ms=f"{stock_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, ok=ok)
+            route=plan.route, tile=f"{plan.th}x{plan.tw}", nb=plan.nb, depth=plan.depth,
+            max_abs_err=f"{max_abs:.4g}", ms=f"{ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
+            host_us=f"{host_us:.1f}", stock_ms=f"{stock_ms:.4f}",
+            stock_ms_pipelined=f"{stock_pipe:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            fault_err_over_limit=json.dumps({n: round(v, 3) for n, v in faults.items()}), ok=ok)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version at "
                                  f"{(Ci, Co, H, W, has_res)}: max_abs_err={max_abs}")
+        if not all(v > 1 for v in faults.values()):
+            raise AssertionError(f"K5's limit does not reject a planted fault at "
+                                 f"{(ks, Ci, Co, H, W, has_res)}: {faults}")
         entries.append(e)
         del x, res, packed
     torch.cuda.empty_cache()
@@ -1016,7 +1149,8 @@ def run_hrnet(torch, frames):
     from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
     from upliftingtabletennis_torch.pipeline.interface import init_weights
 
-    res = {}
+    res = {"routes": k5_routes(torch)}
+    log("hrnet", k5_routes=json.dumps(res["routes"]))
     for name, task, n_in in (("wasb", "ball", 3), ("hrnet", "table", 1)):
         imgs = np.stack([np.concatenate(frames[t:t + n_in], -1) for t in range(HR_CHUNK)])
         images = torch.from_numpy(imgs).to(DEVICE)
@@ -1146,7 +1280,8 @@ def run_detectors(torch, ops, frames, profile=False):
     fps["four_detectors"] = N_FRAMES / sum(secs.values())
     log("detectors", frames=N_FRAMES, chunk=HR_CHUNK,
         frames_per_s=json.dumps({k: round(v, 3) for k, v in fps.items()}), launches=launches,
-        ball_kept=len(idx), table_visible=int(table[:, 2].sum()))
+        ball_kept=len(idx), table_visible=int(table[:, 2].sum()),
+        k5_routes=json.dumps(k5_routes(torch)))
     if launches != expected:
         raise AssertionError(f"main path launches {launches}, expected {expected}")
 
@@ -1285,7 +1420,8 @@ def run_tome(torch, ops, frames, profile=False):
     check_peaks("tome", det, pos, N_FRAMES, (3,))
     fps = N_FRAMES / secs
     log("tome", frames=N_FRAMES, chunk=HR_CHUNK, ratio=TOME_RATIO, frames_per_s=f"{fps:.3f}",
-        predict_s=f"{secs:.3f}", launches=launches, peak_mem_gb=f"{peak_gb:.3f}",
+        predict_s=f"{secs:.3f}", launches=launches, k3_route=K3_ROUTE,
+        peak_mem_gb=f"{peak_gb:.3f}",
         peak_mem_gb_without_tome=f"{plain_peak_gb:.3f}")
 
     # the checks: the ToMe model and a bf16 `kernels=False` copy on the first chunk's
@@ -1410,8 +1546,9 @@ def run_tome(torch, ops, frames, profile=False):
                              f"path on the same plans: {same_err} > {HEAT_TOL}")
     if not fault_err["wrong_partner"] > TOME_HEAT_TOL:
         raise AssertionError(f"a wrong merge plan passes TOME_HEAT_TOL: {fault_err}")
-    res = dict(frames_per_s=fps, predict_s=secs, launches=launches, peak_mem_gb=peak_gb,
-               peak_mem_gb_without_tome=plain_peak_gb, k3_strict=strict, heat_rel_err=heat_err,
+    res = dict(frames_per_s=fps, predict_s=secs, launches=launches, k3_route=K3_ROUTE,
+               peak_mem_gb=peak_gb, peak_mem_gb_without_tome=plain_peak_gb, k3_strict=strict,
+               heat_rel_err=heat_err,
                heat_rel_err_same_plans=same_err, fault_heat_rel_err=fault_err,
                dst_differ_share=dst_share, dst_differ_per_block=share,
                differ_tie_decided_share=explained, tie_decided_per_block=tie_share,
@@ -1959,9 +2096,10 @@ def main() -> int:
     reports = _build.build()
     for src, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
-    log("build", seconds=f"{time.time() - t:.1f}", compiled=sorted(reports))
+    log("build", seconds=f"{time.time() - t:.1f}", compiled=sorted(reports),
+        sass=json.dumps(sass_counts(_build, ("flash_attention.cu", "fused_conv.cu"))))
 
     class Ops:  # the wrappers whose launch counts the main path is held to
         fused_attention_block = k1.fused_attention_block
@@ -2039,6 +2177,8 @@ def main() -> int:
                 "bound_ms": per_forward("bound_ms"),
                 "bound_by": "bytes" if bytes_share * 2 > per_forward("bound_ms") else "operations",
                 "library_ms": per_forward("library_ms"),
+                "ms_pipelined": per_forward("ms_pipelined"),
+                "library_ms_pipelined": per_forward("library_ms_pipelined"),
                 "per": f"one WASB forward at batch {HR_CHUNK}, 1280x704 "
                        f"(sum over its {n} launches)",
                 "per_shape": entries}

@@ -10,8 +10,11 @@ Shapes are small and ragged (N below one 128-row tile or not a multiple of it, N
 1, below one 64-key chunk, ragged and b0's 2040, every (C, heads) of b0 and b2, H and
 W not multiples of the FFN or conv tile; every K2 width and plan of b0 and b2 (fused
 and two-pass), and the plans' shared memory against the C side's formula; every probe
-mode of K1 and K2; K3's Nq and Nkv not multiples of its 128-row and 64-key
-tiles; the stems' Ci = 3 and 9, the heads' Co = 3 and 13). The plain version runs in
+mode of K1 and K2; K3's Nq and Nkv not multiples of its 128-row and 128-key
+tiles, Nkv around its chunk and its ring at hd 32 and 64, a negative and a zero scale;
+every K5a launch plan at ragged H and W with and without the residual, and the K5
+plans' shared memory against the C side's; the stems' Ci = 3 and 9, the heads' Co = 3
+and 13). The plain version runs in
 f32 on the same bf16 inputs; tolerances as in chip_smoke.py: |kernel - plain| <=
 6e-2 + 2e-2 |plain| for K1 and K2, 1e-2 + 8e-3 |plain| for K5, and for K3 the bound
 of its bf16 roundings, 2^-8 (|plain| + softmax(q kᵀ) |v|) per element (`k3_limit`).
@@ -37,6 +40,8 @@ from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plai
 from upliftingtabletennis_torch.ops.fused_conv import (conv1x1_bias_act, conv1x1_bias_act_plain,
                                                       conv3x3_bias_act, conv3x3_bias_act_plain,
                                                       pack)
+from upliftingtabletennis_torch.ops import flash_attention as k3
+from upliftingtabletennis_torch.ops import fused_conv as k5
 from upliftingtabletennis_torch.ops.fused_ffn import fused_ln_ffn, ln_ffn_plain
 from upliftingtabletennis_torch.ops import fused_attention as fa
 from upliftingtabletennis_torch.ops import fused_ffn as k2
@@ -205,10 +210,12 @@ def test_ffn_probe_modes_match_plain(gen, mode, B, H, W, C):
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
 
 
-# (B, Nq, Nkv, heads, hd, scale): ragged Nq and Nkv, one key, one query, many chunks
+# (B, Nq, Nkv, heads, hd, scale): ragged Nq and Nkv, one key, one query, many chunks; a
+# negative and a zero scale (the wrapper hands the kernel a positive one)
 @pytest.mark.parametrize("B,Nq,Nkv,heads,hd,scale", [
     (2, 100, 70, 2, 32, None), (1, 300, 1400, 1, 64, None), (2, 129, 65, 5, 64, 0.3),
     (1, 64, 1, 8, 64, None), (1, 1, 130, 1, 32, None), (1, 257, 2040, 1, 32, None),
+    (2, 70, 130, 2, 32, -0.25), (1, 40, 65, 1, 64, 0.0),
 ])
 def test_k3_kernel_matches_plain(gen, B, Nq, Nkv, heads, hd, scale):
     q, k, v = (_rnd(gen, B, n, heads, hd) for n in (Nq, Nkv, Nkv))
@@ -219,6 +226,21 @@ def test_k3_kernel_matches_plain(gen, B, Nq, Nkv, heads, hd, scale):
     want = cross_attention_plain(q.float(), k.float(), v.float(), scale)
     err = (got.float() - want).abs()
     limit = k3_limit(q, k, v, want, scale)
+    assert bool((err <= limit).all()), f"max err / limit {(err / limit).max().item():.3g}"
+
+
+# Nkv around K3's 128-key chunk and its ring (a chunk x the ring depth + 1 reuses the
+# first stage), b0's 2040; Nq not a multiple of the block's 128 rows
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("Nkv", [1, 63, 64, 65, k3.CHUNK * k3.STAGES + 1, 2040])
+def test_k3_ring_and_tails_match_plain(gen, hd, Nkv):
+    B, Nq, heads = 2, 300, 3
+    q, k, v = (_rnd(gen, B, n, heads, hd) for n in (Nq, Nkv, Nkv))
+    got = flash_cross_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = cross_attention_plain(q.float(), k.float(), v.float())
+    err = (got.float() - want).abs()
+    limit = k3_limit(q, k, v, want)
     assert bool((err <= limit).all()), f"max err / limit {(err / limit).max().item():.3g}"
 
 
@@ -257,6 +279,37 @@ def test_k5a_kernel_matches_plain(gen, B, H, W, Ci, Co, bias, res, relu):
                                   None if r is None else r.float(), relu=relu)
     torch.testing.assert_close(got.float(), want, atol=K5_ATOL, rtol=K5_RTOL)
     assert torch.equal(got, packed)
+
+
+# every K5a instantiation along its plan (its route, channel groups, tile and ring), H and
+# W not multiples of the tile and more tiles than one block's ring holds, with and
+# without the residual
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("Ci,Co", k5.CONV3_SHAPES)
+def test_k5a_every_plan_matches_plain(gen, Ci, Co, res):
+    plan = k5.conv_plan(3, Ci, Co)
+    B, H, W = 2, 3 * plan.th + 5, 2 * plan.tw + 7
+    x, w, b, r = _conv_case(gen, 3, B, H, W, Ci, Co, True, res)
+    got = conv3x3_bias_act(x, w, b, r, relu=True)
+    torch.cuda.synchronize()
+    want = conv3x3_bias_act_plain(x.float(), w.float(), b.float(),
+                                  None if r is None else r.float(), relu=True)
+    torch.testing.assert_close(got.float(), want, atol=K5_ATOL, rtol=K5_RTOL)
+
+
+def test_conv_plans_use_the_c_shared_memory_formulas(gen):
+    """K5's plans' shared memory (Python) equals the C side's for the plan's instantiation."""
+    import ctypes
+
+    lib = k5._lib()
+    lib.uttk_fused_conv_smem.argtypes = [ctypes.c_int] * 7
+    lib.uttk_fused_conv_smem.restype = ctypes.c_longlong
+    convs = [(3, ci, co) for ci, co in k5.CONV3_SHAPES] + [
+        (1, ci, co) for ci, co in k5.CONV1_TILES] + [(1, 16, 3), (1, 16, 13)]
+    for ks, ci, co in convs:
+        plan = k5.conv_plan(ks, ci, co)
+        assert lib.uttk_fused_conv_smem(ks, ci, co, plan.nb, plan.th, plan.tw,
+                                        plan.depth) == plan.smem, (ks, ci, co)
 
 
 @pytest.mark.parametrize("B,H,W,Ci,Co,bias,res,relu", [

@@ -11,7 +11,7 @@ import torch
 
 from upliftingtabletennis_tpu.ops.flash_attention import dense_cross_attention
 from upliftingtabletennis_tpu.ops.flash_attention import flash_cross_attention as jax_k3
-from upliftingtabletennis_torch.ops.flash_attention import (cross_attention_plain,
+from upliftingtabletennis_torch.ops.flash_attention import (CHUNK, STAGES, cross_attention_plain,
                                                             flash_cross_attention)
 
 torch.set_num_threads(1)
@@ -52,8 +52,9 @@ def _k3_limit(q, k, v, want):
 
 
 # the kernel's rounding (bf16 probabilities and output), a 64-key chunk skipped, the
-# last chunk's 55 zero-filled keys left unmasked (logit 0)
-@pytest.mark.parametrize("fault", ["none", "chunk", "tail"])
+# last 128-key chunk's 119 zero-filled keys left unmasked (logit 0), and one chunk read
+# from the ring stage a ring depth earlier (a wrong mbarrier parity)
+@pytest.mark.parametrize("fault", ["none", "chunk", "tail", "stale"])
 def test_k3_limit_admits_bf16_roundings_and_rejects_faults(fault):
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(2, 300, 777, 2, 64, seed=3))
     want = cross_attention_plain(q.float(), k.float(), v.float())
@@ -62,9 +63,13 @@ def test_k3_limit_admits_bf16_roundings_and_rejects_faults(fault):
     elif fault == "chunk":
         keep = torch.cat([torch.arange(64), torch.arange(128, 777)])
         got = cross_attention_plain(q, k[:, keep], v[:, keep])
-    else:
-        pad = torch.zeros(2, 832 - 777, 2, 64, dtype=torch.bfloat16)
+    elif fault == "tail":
+        pad = torch.zeros(2, -777 % CHUNK, 2, 64, dtype=torch.bfloat16)
         got = cross_attention_plain(q, torch.cat([k, pad], 1), torch.cat([v, pad], 1))
+    else:
+        stale = torch.arange(777)
+        stale[CHUNK * STAGES:CHUNK * (STAGES + 1)] = torch.arange(CHUNK)
+        got = cross_attention_plain(q, k[:, stale], v[:, stale])
     within = bool(((got.float() - want).abs() <= _k3_limit(q.float(), k.float(), v.float(),
                                                            want)).all())
     assert within == (fault == "none")

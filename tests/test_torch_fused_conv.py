@@ -83,17 +83,21 @@ def test_k5_plain_matches_lax_conv_at_ragged_shape(ks, Ci, Co):
 @pytest.mark.parametrize("ks,Ci,Co", [(3, 9, 64), (3, 3, 64), (3, 32, 32), (1, 16, 3),
                                       (1, 64, 128)])
 def test_packed_layout_is_the_kernels_im2col_order(ks, Ci, Co):
-    """pack(w, b) gives (round16(Co), round16(taps * Ci)) with column (dy * ks + dx) * Ci
-    + ci, zero-padded, and an f32 bias: an im2col product with it is the conv."""
+    """pack(w, b) gives (round16(Co), round16(taps * Cp)) with column (dy * ks + dx) * Cp
+    + ci, zero-padded, and an f32 bias, where Cp = max(Ci, 16) for a 3x3 conv (a stem's
+    taps widened to 16 channels, as its halo tile is) and Ci for a 1x1 conv: an im2col
+    product with it, of x widened to Cp channels, is the conv."""
     x, w, b, _ = _case(3, ks, 1, 7, 9, Ci, Co, True, False)
     p = pack(torch.from_numpy(w), torch.from_numpy(b))
-    K = ks * ks * Ci
+    Cp = max(Ci, 16) if ks == 3 else Ci
+    K = ks * ks * Cp
     assert p.weight.dtype == torch.bfloat16 and p.bias.dtype == torch.float32
     assert p.weight.shape == (Co + -Co % 16, K + -K % 16)
     wk = p.weight.float().numpy()
     assert not wk[Co:].any() and not wk[:, K:].any()
+    assert not wk[:, :K].reshape(-1, ks * ks, Cp)[..., Ci:].any()  # the widened channels
     h = ks // 2
-    xp = np.pad(x, ((0, 0), (h, h), (h, h), (0, 0)))
+    xp = np.pad(x, ((0, 0), (h, h), (h, h), (0, Cp - Ci)))
     cols = np.concatenate([xp[:, dy:dy + 7, dx:dx + 9] for dy in range(ks) for dx in range(ks)],
                           axis=-1)
     got = cols @ wk[:Co, :K].T + p.bias.numpy()

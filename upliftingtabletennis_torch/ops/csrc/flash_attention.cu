@@ -10,248 +10,318 @@
 //
 // What bounds it: the QK^T and PV products (4 * Nq * Nkv * hd operations per
 // (sample, head)) and the Nq * Nkv exponentials; q is read once and the
-// output written once, so the bytes are far below the operations.
+// output written once, so the bytes are far below the operations. Only the
+// warpgroup products (wgmma) reach the tensor cores' full rate.
 //
-// Design. The TPU kernel keeps a head's whole K/V resident and softmaxes in
-// one pass; here K+V of one head is 358 KB at b2 (Nkv = 1400, hd = 64),
-// above the 227 KB a block may use. So the kernel is K1's inner loop
-// (fused_attention.cu) without the LayerNorm, the projections and the
-// residual:
-//   - one block of 8 warps owns BM = 128 query rows of one (sample, head);
-//     each warp owns 16 rows and keeps their q as mma A fragments in
-//     registers for the whole block, read straight from the (B, N, h, hd)
-//     layout (no transpose);
-//   - K and V stream through shared memory in chunks of BN = 64 keys,
-//     double-buffered with cp.async (the next chunk loads while the warps
-//     compute on this one); keys beyond Nkv are zero-filled by the copy and
-//     their logits set to -inf;
-//   - the logits, the probabilities and the running output stay in
-//     registers in the mma.sync.m16n8k16 accumulator layout (online
-//     softmax, FlashAttention-2 arrangement); V is kept [key][dim] and its
-//     B fragments load transposed with ldmatrix.trans;
-//   - query rows beyond Nq read zeros and are not stored.
-// No TMA, wgmma or warp specialisation yet.
+// Design (the FlashAttention-3 arrangement, hopper.cuh's primitives):
+//   - a persistent block per SM walks over tiles of (128 query rows, head,
+//     sample): two consumer warpgroups own 64 rows each, one producer warp (a
+//     third warpgroup, its registers lowered with setmaxnreg and given to the
+//     consumers) keeps TMA loads in flight;
+//   - TMA reads the (B, N, h, hd) layout directly through 4-D tensor maps
+//     (hd, h, N, B): each tile's q into one of two buffers (the next tile's q
+//     loads while this one runs), K and V in chunks of BN = 128 keys through a
+//     ring of STAGES stages with full / empty mbarriers that runs on from one
+//     tile to the next. Boxes that reach beyond Nq or Nkv read zeros, never the
+//     next sample. Tiles are stored with TMA's swizzle of one row (128 B at
+//     hd = 64, 64 B at hd = 32), which the wgmma descriptors name;
+//   - S = q K^T: wgmma m64n128k16, both operands from shared memory, K stored
+//     [key][dim] (K-major). The logits stay in registers: online softmax in
+//     base 2 with the scale folded into one FFMA and one ex2.approx.ftz per
+//     logit; keys beyond Nkv are set to -inf in the last chunk only;
+//   - O += P V: wgmma m64n{hd}k16 with P repacked from the S accumulators as
+//     the register A operand (bf16, as the plain version rounds the weights)
+//     and V read from its [key][dim] tile as a transposed (N-major) B;
+//   - overlap inside a warpgroup: the products S of chunk c + 1 and O += P_c V_c
+//     are issued together, and the softmax of chunk c + 1 runs while
+//     O += P_c V_c is on the tensor cores; across the two: they take turns to
+//     issue their products (named barriers), so one's softmax runs under the
+//     other's products;
+//   - epilogue: O / l rounded to bf16 is staged in the warpgroup's output tile,
+//     swizzled as TMA reads it, and written by a TMA store, which clips at Nq;
+//     the store drains while the next tile runs.
 #include <cmath>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // query rows per block
-constexpr int BN = 64;   // keys per K/V chunk
-constexpr int NWARPS = BM / 16;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int PAD = 8;  // bf16 row padding of the shared K/V tiles
+constexpr int BM = 128;      // query rows per block
+constexpr int BN = 128;      // keys per K/V chunk
+constexpr int STAGES = 4;    // K/V ring depth
+constexpr int CONSUMERS = 256;  // two warpgroups
+constexpr int NTHREADS = CONSUMERS + 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// max / sum over the 4 lanes of a quad (the lanes that hold one accumulator row)
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four transposed 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a . b for one m16n8k16 tile (bf16 in, f32 accumulation). Fragment
-// layout (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int HD>
+struct Smem {
+  static constexpr int ROW = 2 * HD;  // bytes per row of a tile, and its swizzle
+  static constexpr int Q = BM * ROW, KV = BN * ROW, O = 64 * ROW;
+  // two q buffers, the K and V rings, one output tile per consumer warpgroup; barriers
+  static constexpr int KRING = 2 * Q, VRING = KRING + STAGES * KV, OUT = VRING + STAGES * KV;
+  static constexpr int BARS = OUT + 2 * O;  // q_full[2], q_empty[2], k_full[], v_full[], empty[]
+  static constexpr int BYTES = 1024 + BARS + 8 * (4 + 3 * STAGES);  // + 1024 to align the base
+  static_assert(ROW == 64 || ROW == 128, "hd is 32 or 64");
+};
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, int Nq, int Nkv,
-                       int heads, float scale2) {
-  constexpr int LDH = HD + PAD;
-  __shared__ __align__(128) bf16 ks[2][BN * LDH];  // K chunks, [key][dim]
-  __shared__ __align__(128) bf16 vs[2][BN * LDH];  // V chunks, [key][dim]
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap omap, int Nq, int Nkv, int heads,
+                       int B, float scale2) {
+  using S = Smem<HD>;
+  constexpr int ROW = S::ROW;
+  constexpr uint32_t LAYOUT = uttk::swizzle_layout(ROW);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = uttk::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // the same bytes, generic address
+  auto q_s = [&](int qb) { return base + qb * S::Q; };
+  auto k_s = [&](int s) { return base + S::KRING + s * S::KV; };
+  auto v_s = [&](int s) { return base + S::VRING + s * S::KV; };
+  const uint32_t bars = base + S::BARS;
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto k_full = [&](int s) { return bars + 8 * (4 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (4 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (4 + 2 * STAGES + s); };
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // accumulator row group / column pair
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const size_t ld = (size_t)heads * HD;  // elements from one token to the next
-  const bf16* kb = k + (size_t)b * Nkv * ld + h * HD;
-  const bf16* vb = v + (size_t)b * Nkv * ld + h * HD;
-
-  // K/V chunk c into buffer buf: BN keys x HD / 8 pieces of 16 bytes each
-  auto load_chunk = [&](int c, int buf) {
-    for (int e = threadIdx.x; e < BN * (HD / 8); e += NTHREADS) {
-      const int j = e / (HD / 8), c8 = (e % (HD / 8)) * 8;
-      const int key = c * BN + j;
-      const bool valid = key < Nkv;
-      const size_t off = (size_t)(valid ? key : 0) * ld + c8;
-      cp_async16(&ks[buf][j * LDH + c8], kb + off, valid);
-      cp_async16(&vs[buf][j * LDH + c8], vb + off, valid);
-    }
-  };
+  // persistent: this block takes tiles blockIdx.x, + gridDim.x, ...; a tile is (128 query
+  // rows, head, sample), the rows fastest, so that neighbouring blocks share K/V in L2
+  const int n_mt = (Nq + BM - 1) / BM, ntiles = n_mt * heads * B;
   const int nch = (Nkv + BN - 1) / BN;
-  load_chunk(0, 0);
-  cp_async_commit();
-
-  // this warp's 16 query rows as A fragments (zeros beyond Nq)
-  const int row = blockIdx.x * BM + warp * 16 + g;
-  const bool ok_lo = row < Nq, ok_hi = row + 8 < Nq;
-  const bf16* q_lo = q + ((size_t)b * Nq + (ok_lo ? row : 0)) * ld + h * HD + 2 * t;
-  const bf16* q_hi = q + ((size_t)b * Nq + (ok_hi ? row + 8 : 0)) * ld + h * HD + 2 * t;
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    qa[kk][0] = ok_lo ? ld32(q_lo + kk * 16) : 0u;
-    qa[kk][1] = ok_hi ? ld32(q_hi + kk * 16) : 0u;
-    qa[kk][2] = ok_lo ? ld32(q_lo + kk * 16 + 8) : 0u;
-    qa[kk][3] = ok_hi ? ld32(q_hi + kk * 16 + 8) : 0u;
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      uttk::mbar_init(q_full(qb), 1);
+      uttk::mbar_init(q_empty(qb), 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      uttk::mbar_init(k_full(s), 1);
+      uttk::mbar_init(v_full(s), 1);
+      uttk::mbar_init(empty(s), 2);
+    }
+    uttk::mbar_fence_init();
   }
+  __syncthreads();
 
-  float o[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of rows g and g + 8 (base 2)
-  float l_lo = 0.f, l_hi = 0.f;              // this lane's part of the running sums
-
-  for (int c = 0; c < nch; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < nch) load_chunk(c + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk c has landed (this thread's copies)
-    __syncthreads();     // ... and every thread's
-    const bf16* kc = ks[buf];
-    const bf16* vc = vs[buf];
-    const int kv0 = c * BN;
-
-    // S = q . K^T: 16 rows x BN keys as BN / 8 accumulator tiles
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* k0 = kc + (nt * 8 + g) * LDH + kk * 16 + 2 * t;
-        mma_16816(s[nt], qa[kk], ld32(k0), ld32(k0 + 8));
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: one thread issues every load
+    uttk::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      int kv = 0;  // chunks loaded so far, over all of this block's tiles
+      for (int tile = blockIdx.x, i = 0; tile < ntiles; tile += gridDim.x, ++i) {
+        const int m0 = (tile % n_mt) * BM, h = (tile / n_mt) % heads, b = tile / (n_mt * heads);
+        const int qb = i & 1;
+        if (i >= 2) uttk::mbar_wait(q_empty(qb), ((i >> 1) - 1) & 1);
+        uttk::mbar_expect_tx(q_full(qb), S::Q);
+        uttk::tma_load_4d(q_s(qb), &qmap, q_full(qb), 0, h, m0, b);
+        for (int c = 0; c < nch; ++c, ++kv) {
+          const int s = kv % STAGES;
+          if (kv >= STAGES) uttk::mbar_wait(empty(s), ((kv / STAGES) - 1) & 1);
+          uttk::mbar_expect_tx(k_full(s), S::KV);
+          uttk::tma_load_4d(k_s(s), &kmap, k_full(s), 0, h, c * BN, b);
+          uttk::mbar_expect_tx(v_full(s), S::KV);
+          uttk::tma_load_4d(v_s(s), &vmap, v_full(s), 0, h, c * BN, b);
+        }
       }
     }
-    // logits in base 2: s2 = q.k * scale * log2(e), p = 2^(s2 - m2)
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+  } else {  // consumers: warpgroup wg owns query rows 64 wg .. + 63 of each tile
+    uttk::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;  // accumulator row group / column pair
+    const bool leader = (threadIdx.x & 127) == 0;
+    float o[HD / 2];
+    float m_lo, m_hi;  // running max of rows g and g + 8 (base 2)
+    float l_lo, l_hi;  // this thread's part of the running sums
+    float sacc[BN / 2];                        // logits, then probabilities, of one chunk
+    uint32_t pa[BN / 16][4];                   // the probabilities as PV's A fragments
+    uint32_t q_wg = 0;                         // this warpgroup's rows of the tile's q
+    int kv0 = 0;                               // chunks consumed before this tile
+
+    // Each product is fenced as CUTLASS fences its accumulators: no instruction of the
+    // thread touches them between the issue and the commit.
+    auto issue_s = [&](int c) {  // S = q K_c^T, asynchronous
+      const int s = (kv0 + c) % STAGES;
+      uttk::mbar_wait(k_full(s), ((kv0 + c) / STAGES) & 1);
+      uttk::fence_operands(sacc);
+      uttk::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const int key = kv0 + nt * 8 + 2 * t;
+      for (int kk = 0; kk < HD / 16; ++kk)
+        uttk::wgmma_ss_n128(sacc, uttk::wgmma_desc(q_wg + 32 * kk, 16, 8 * ROW, LAYOUT),
+                            uttk::wgmma_desc(k_s(s) + 32 * kk, 16, 8 * ROW, LAYOUT), kk > 0);
+      uttk::wgmma_commit();
+      uttk::fence_operands(sacc);
+    };
+    // online softmax of chunk c's logits in place, keys beyond Nkv -> -inf. Base 2 with
+    // the scale folded in: p = 2^(s * scale2 - m), m the running max of s * scale2 (scale2
+    // > 0, so that is scale2 times the max of s); the maxima and sums run in four chains
+    // per row. Returns the factors that rescale the rows' earlier sums.
+    auto softmax = [&](int c, float& a_lo, float& a_hi) {
+      if (c == nch - 1 && c * BN + BN > Nkv) {  // the last chunk: keys beyond Nkv
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = key + (i & 1) < Nkv ? s[nt][i] * scale2 : -INFINITY;
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-    // every chunk holds at least one valid key, so the new max is finite
-    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
-    const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
-    const float a_lo = exp2f(m_lo - mn_lo), a_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
+        for (int j = 0; j < BN / 8; ++j) {
+          const int key = c * BN + 8 * j + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn_lo);
-      s[nt][1] = exp2f(s[nt][1] - mn_lo);
-      s[nt][2] = exp2f(s[nt][2] - mn_hi);
-      s[nt][3] = exp2f(s[nt][3] - mn_hi);
-      sum_lo += s[nt][0] + s[nt][1];
-      sum_hi += s[nt][2] + s[nt][3];
-    }
-    l_lo = l_lo * a_lo + sum_lo;
-    l_hi = l_hi * a_hi + sum_hi;
+          for (int i = 0; i < 4; ++i)
+            if (key + (i & 1) >= Nkv) sacc[4 * j + i] = -INFINITY;
+        }
+      }
+      float mx[2][4];
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      o[dt][0] *= a_lo;
-      o[dt][1] *= a_lo;
-      o[dt][2] *= a_hi;
-      o[dt][3] *= a_hi;
-    }
-    // O += P . V: the probabilities of keys 16kk..16kk+15 form one A fragment;
-    // one ldmatrix.x4.trans gives the B fragments of two 8-column tiles of V
-    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+      for (int k = 0; k < 4; ++k) mx[0][k] = mx[1][k] = -INFINITY;
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int j = 0; j < BN / 8; ++j) {
+        mx[0][j & 3] = fmaxf(mx[0][j & 3], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx[1][j & 3] = fmaxf(mx[1][j & 3], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+      // every chunk holds at least one valid key, so the new max is finite
+      const float r_lo = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+      const float r_hi = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+      const float mn_lo = fmaxf(m_lo, scale2 * uttk::quad_max(r_lo));
+      const float mn_hi = fmaxf(m_hi, scale2 * uttk::quad_max(r_hi));
+      a_lo = uttk::exp2_ftz(m_lo - mn_lo);
+      a_hi = uttk::exp2_ftz(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float sum[2][4] = {};
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; dt += 2) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vc + (kk * 16 + lrow) * LDH + dt * 8 + lcol);
-        mma_16816(o[dt], pa, vb4[0], vb4[1]);
-        mma_16816(o[dt + 1], pa, vb4[2], vb4[3]);
+      for (int j = 0; j < BN / 8; ++j) {
+        sacc[4 * j] = uttk::exp2_ftz(fmaf(sacc[4 * j], scale2, -mn_lo));
+        sacc[4 * j + 1] = uttk::exp2_ftz(fmaf(sacc[4 * j + 1], scale2, -mn_lo));
+        sacc[4 * j + 2] = uttk::exp2_ftz(fmaf(sacc[4 * j + 2], scale2, -mn_hi));
+        sacc[4 * j + 3] = uttk::exp2_ftz(fmaf(sacc[4 * j + 3], scale2, -mn_hi));
+        sum[0][j & 3] += sacc[4 * j] + sacc[4 * j + 1];
+        sum[1][j & 3] += sacc[4 * j + 2] + sacc[4 * j + 3];
+      }
+      l_lo = l_lo * a_lo + ((sum[0][0] + sum[0][1]) + (sum[0][2] + sum[0][3]));
+      l_hi = l_hi * a_hi + ((sum[1][0] + sum[1][1]) + (sum[1][2] + sum[1][3]));
+    };
+    // keys 16 kk .. 16 kk + 15 are the A fragment of step kk: n8 blocks 2 kk and 2 kk + 1
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        pa[j / 2][(j & 1) * 2] = uttk::pack_bf16(sacc[4 * j], sacc[4 * j + 1]);
+        pa[j / 2][(j & 1) * 2 + 1] = uttk::pack_bf16(sacc[4 * j + 2], sacc[4 * j + 3]);
+      }
+    };
+    auto issue_pv = [&](int c) {  // O += P_c V_c, asynchronous
+      const int s = (kv0 + c) % STAGES;
+      uttk::mbar_wait(v_full(s), ((kv0 + c) / STAGES) & 1);
+      uttk::fence_operands(o);
+      uttk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        uttk::wgmma_rs<HD, 1>(
+            o, pa[kk], uttk::wgmma_desc(v_s(s) + kk * 16 * ROW, BN * ROW, 8 * ROW, LAYOUT), 1);
+      uttk::wgmma_commit();
+      uttk::fence_operands(o);
+    };
+
+    // Chunk c: S of chunk c + 1 and O += P_c V_c go to the tensor cores together; the
+    // softmax of chunk c + 1 runs while O += P_c V_c is in flight; then O is rescaled.
+    // (The last chunk is peeled so that every wait covers the same groups on every path.)
+    // The two warpgroups take turns to issue their products (named barriers 3 and 4, a
+    // ping-pong), so one's softmax runs while the other's products hold the tensor cores.
+    const int mine = 3 + wg, other = 4 - wg;
+    if (wg == 1) uttk::named_bar_arrive(other, CONSUMERS);  // warpgroup 0 issues first
+    unsigned char* out_g = gbase + S::OUT + wg * S::O;
+    for (int tile = blockIdx.x, i = 0; tile < ntiles; tile += gridDim.x, ++i) {
+      const int m0 = (tile % n_mt) * BM, h = (tile / n_mt) % heads, b = tile / (n_mt * heads);
+      const int qb = i & 1;
+      q_wg = q_s(qb) + wg * 64 * ROW;
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+      m_lo = m_hi = -INFINITY;
+      l_lo = l_hi = 0.f;
+      float a_lo, a_hi;
+      uttk::mbar_wait(q_full(qb), (i >> 1) & 1);
+      issue_s(0);
+      uttk::wgmma_wait<0>();
+      uttk::fence_operands(sacc);
+      softmax(0, a_lo, a_hi);
+      pack_p();
+      for (int c = 0; c + 1 < nch; ++c) {
+        uttk::named_bar_sync(mine, CONSUMERS);
+        issue_s(c + 1);
+        issue_pv(c);
+        uttk::named_bar_arrive(other, CONSUMERS);
+        uttk::wgmma_wait<1>();  // S of chunk c + 1 has landed
+        uttk::fence_operands(sacc);
+        softmax(c + 1, a_lo, a_hi);
+        uttk::wgmma_wait<0>();  // O += P_c V_c is done: its stage goes back to the producer
+        uttk::fence_operands(o);
+        if (leader) uttk::mbar_arrive(empty((kv0 + c) % STAGES));
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= a_lo;
+          o[4 * j + 1] *= a_lo;
+          o[4 * j + 2] *= a_hi;
+          o[4 * j + 3] *= a_hi;
+        }
+        pack_p();
+      }
+      uttk::named_bar_sync(mine, CONSUMERS);
+      issue_pv(nch - 1);
+      uttk::named_bar_arrive(other, CONSUMERS);
+      uttk::wgmma_wait<0>();
+      uttk::fence_operands(o);
+      if (leader) {  // the tile's q and last stage go back to the producer
+        uttk::mbar_arrive(empty((kv0 + nch - 1) % STAGES));
+        uttk::mbar_arrive(q_empty(qb));
+      }
+      kv0 += nch;
+
+      // normalise; stage this warpgroup's rows (bf16, swizzled as TMA reads them), once the
+      // previous tile's store has read the staging tile; TMA store, which clips at Nq
+      const float inv_lo = 1.f / uttk::quad_sum(l_lo), inv_hi = 1.f / uttk::quad_sum(l_hi);
+      if (leader) uttk::bulk_wait_read();
+      uttk::named_bar_sync(1 + wg, 128);
+      const int r = 16 * warp + g;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const uint32_t col = 2 * (8 * j + 2 * t);
+        *reinterpret_cast<uint32_t*>(out_g + uttk::swizzle<ROW>(r * ROW + col)) =
+            uttk::pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+        *reinterpret_cast<uint32_t*>(out_g + uttk::swizzle<ROW>((r + 8) * ROW + col)) =
+            uttk::pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+      }
+      uttk::fence_proxy_async();
+      uttk::named_bar_sync(1 + wg, 128);
+      if (leader) {
+        uttk::tma_store_4d(&omap, base + S::OUT + wg * S::O, 0, h, m0 + 64 * wg, b);
+        uttk::bulk_commit();
       }
     }
-    __syncthreads();  // every warp is done with buffer buf before it is refilled
-  }
-
-  // normalise and store this warp's rows
-  const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
-  bf16* o_lo = out + ((size_t)b * Nq + row) * ld + h * HD + 2 * t;
-  bf16* o_hi = o_lo + 8 * ld;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    if (ok_lo)
-      *reinterpret_cast<uint32_t*>(o_lo + dt * 8) = pack_bf16(o[dt][0] * inv_lo, o[dt][1] * inv_lo);
-    if (ok_hi)
-      *reinterpret_cast<uint32_t*>(o_hi + dt * 8) = pack_bf16(o[dt][2] * inv_hi, o[dt][3] * inv_hi);
+    if (wg == 0) uttk::named_bar_sync(mine, CONSUMERS);  // warpgroup 1's last turn
+    if (leader) uttk::bulk_wait();
   }
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Nq, int Nkv,
            int heads, float scale, cudaStream_t stream) {
-  const dim3 grid((Nq + BM - 1) / BM, B * heads);
-  flash_attention_kernel<HD><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Nq, Nkv, heads, scale * LOG2E);
+  auto kernel = flash_attention_kernel<HD>;
+  constexpr int smem = Smem<HD>::BYTES;
+  uttk_host::Occupancy occ;
+  int err = uttk_host::prepare<flash_attention_kernel<HD>>(smem, NTHREADS, &occ);
+  if (err != 0) return err;
+  const uint64_t tok = 2ull * heads * HD;  // bytes from one token to the next
+  const uint64_t dq[4] = {HD, (uint64_t)heads, (uint64_t)Nq, (uint64_t)B};
+  const uint64_t dk[4] = {HD, (uint64_t)heads, (uint64_t)Nkv, (uint64_t)B};
+  const uint64_t sq[3] = {2ull * HD, tok, tok * Nq}, sk[3] = {2ull * HD, tok, tok * Nkv};
+  const uint32_t bq[4] = {HD, 1, BM, 1}, bk[4] = {HD, 1, BN, 1}, bo[4] = {HD, 1, 64, 1};
+  CUtensorMap qm, km, vm, om;
+  if ((err = uttk_host::tensor_map_4d(&qm, q, dq, sq, bq, 2 * HD)) != 0) return err;
+  if ((err = uttk_host::tensor_map_4d(&km, k, dk, sk, bk, 2 * HD)) != 0) return err;
+  if ((err = uttk_host::tensor_map_4d(&vm, v, dk, sk, bk, 2 * HD)) != 0) return err;
+  if ((err = uttk_host::tensor_map_4d(&om, out, dq, sq, bo, 2 * HD)) != 0) return err;
+  const long long ntiles = (long long)((Nq + BM - 1) / BM) * heads * B;
+  const long long cap = (long long)occ.blocks_per_sm * occ.sms;
+  const dim3 grid(static_cast<unsigned>(ntiles < cap ? ntiles : cap));
+  kernel<<<grid, NTHREADS, smem, stream>>>(qm, km, vm, om, Nq, Nkv, heads, B, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -264,12 +334,14 @@ const char* uttk_error_string(int status) {
 }
 
 // q, out (B, Nq, heads, hd); k, v (B, Nkv, heads, hd). All bf16, contiguous,
-// 32-byte aligned. hd is 32 or 64; Nq >= 1, Nkv >= 1, B * heads <= 65535.
+// 16-byte aligned. hd is 32 or 64; Nq >= 1, Nkv >= 1, B * heads * ceil(Nq / 128) < 2^31;
+// scale > 0.
 // Returns a cudaError_t code (0 on success).
 int uttk_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int Nq,
                          int Nkv, int heads, int hd, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Nq < 1 || Nkv < 1 || B * heads < 1 || B * heads > 65535)
+  if (Nq < 1 || Nkv < 1 || B < 1 || heads < 1 || !(scale > 0.f) ||
+      (long long)((Nq + BM - 1) / BM) * heads * B >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 32: return launch<32>(q, k, v, out, B, Nq, Nkv, heads, scale, st);

@@ -18,8 +18,8 @@ densely through `cross_attention_plain` (Nkv stays small by SegFormer's
 spatial reduction) and returns that graph's gradients.
 
 Layout: q (B, Nq, h, hd), k and v (B, Nkv, h, hd), as in the JAX function.
-The kernel reads that layout directly (the JAX wrapper's transposes to
-(B·h, N, hd) are a TPU layout).
+The kernel reads that layout directly through TMA tensor maps (the JAX
+wrapper's transposes to (B·h, N, hd) are a TPU layout).
 """
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ __all__ = ["flash_cross_attention", "flash_cross_attention_diff", "cross_attenti
 _SOURCE = "flash_attention.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 HEAD_DIMS = (32, 64)  # SegFormer b0 and b2
+# mirrors of csrc/flash_attention.cu: keys per K/V chunk and the depth of their ring
+CHUNK, STAGES = 128, 4
 
 
 def cross_attention_plain(q, k, v, scale=None):
@@ -57,6 +59,8 @@ def _lib():
 
 
 def _launch(q, k, v, scale):
+    if scale <= 0:  # the kernel folds a positive scale into its base-2 exponent
+        q, scale = (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
     B, Nq, heads, hd = q.shape
     Nkv = k.shape[1]
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
