@@ -84,26 +84,33 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             after (2 per call); the kernel's suppression words against the plain version's
             bit for bit and the keep lists equal; a planted fault (`>` in place of `>=`)
             that the check must see; kernel and plain times per call at N = 400 and 4096,
-            the bound;
+            split into the overlap and the resolve launch; the bound, and the floor of the
+            resolve's serial chain (its steps at the latency of one, which a one-thread
+            kernel of the chain alone measures);
 14. vitpose `hub.ball_detection("vitpose")` on the triplets and `hub.table_detection("vitpose")`
             on the centre frames at chunk 8, 1152x640: peak device memory and no port
             kernel launched on the 16 frames; frames/s as the median and range of 5 warm
             calls over 64 frames each; heatmaps against a `kernels=False` f32 copy (einsum attention);
             `keypoints_from_heatmaps` (default and unbiased) on the table heatmaps against
             the same call on their CPU copy;
-15. k4      K4 (depthwise 3x3, `ops/dwconv.py`) against its plain version (f32 on the same
-            bf16 inputs), forward and dx (K4 on the cotangent with the flipped taps, through
-            the autograd Function), at the four b2 hidden shapes of the 1600x896 trainer at
-            batch 4 and one ragged shape; two planted faults (dx with the unflipped taps, the
-            halo rows between 8-row tiles dropped) that the limit must reject; kernel, plain
-            and `F.conv2d(groups=C)` (channels_last bf16) times; the bound;
+15. k4      K4 (depthwise 3x3, `ops/dwconv.py`) against its plain versions (f32 on the same
+            bf16 inputs), forward, and the backward kernel's dx, dw and db (through the
+            autograd Function, as the trainer calls it), at the four b2 hidden shapes of the
+            1600x896 trainer at batch 4 and one ragged shape; dw and db bit-identical over
+            two calls; planted faults that the limits must reject (dx with the unflipped
+            taps, the halo rows between the forward's row tiles dropped, one block's partial
+            sum of dw and db left out, the halo column at the backward's tile seams dropped
+            from dw); kernel, plain and library times (`F.conv2d(groups=C)` and
+            `aten.convolution_backward`, channels_last bf16) and the bounds of both;
 16. train   the SegFormer trainer (`train/run_detection.py`) on segformerpp_b2, ball,
             1600x896, batch 4, the loss at 1920x1080, on four synthetic triplets: (a) one
             step's loss and every parameter's gradient on the kernel path (bf16) against the
             f32 plain path (`kernels=False`, no TF32) on the same augmented batch, and a
             planted fault (K4's dx with the unflipped taps) that must break the limit; (b)
             one `train_step` (the main path, launch counts reset just before and read just
-            after): 16 K1, 16 K2, 32 K4 and no other launch; (c) ten steps on one fixed
+            after): 16 K1, 16 K2, 16 K4 forward and 32 K4 backward launches (16 calls,
+            each the fused pass and the sum of its partials) and no other launch; (c) ten
+            steps on one fixed
             batch: the loss finite and lower at the end; (d) ms per step (median of the warm
             steps), images/s and peak memory; (e) the CLI on the card: 2 steps and a
             validation pass on a tiny TTHQ layout written as PNGs, its checkpoint loaded by
@@ -218,6 +225,9 @@ K6_SIZES = (1, 13, 64, 65, 130, 400, 1000, 4096)
 K6_THRESHOLDS = (0.3, 0.5, 0.7)
 K6_TIMED = (400, 4096)  # N of the timed calls, at thresh 0.5
 K6_FLOPS_PER_PAIR = 20  # max, min, sub, add, mul, div, compare over one pair of boxes
+# the resolve's serial chain alone, timed on the card (nms.cu's serial_chain_kernel): this
+# many dependent scans of 64 steps (about a million steps), in one thread, three calls
+K6_CHAIN_CHUNKS, K6_CHAIN_CALLS = 16384, 3
 VIT_RES = (1152, 640)  # ViTPose's native (W, H)
 # ViTPose's frames/s: the median (and the range) of this many warm predict calls, each
 # over VIT_RATE_ITEMS times the phase's 16 frames (8 chunks, about half a second): one
@@ -227,11 +237,18 @@ VIT_RATE_CALLS, VIT_RATE_ITEMS = 5, 4
 # the trainer: segformerpp_b2, ball, at its 1600x896 input, batch 4 (the JAX default), the
 # loss at the 1920x1080 evaluation resolution
 TRAIN_BATCH, TRAIN_RES, EVAL_RES = 4, (1600, 896), (1920, 1080)
-# K4's shapes on that step: b2's hidden tensors (H, W, 4C), two launches per block (K2's
-# recompute and its dx), depth blocks per stage
+# K4's shapes on that step: b2's hidden tensors (H, W, 4C), depth blocks per stage, each
+# one forward launch (K2's recompute) and one backward call (its dx, dw and db)
 K4_SHAPES = [(TRAIN_BATCH, H, W, 4 * C, depth) for H, W, C, _, _, depth in B2_STAGES]
-K4_RAGGED = (2, 45, 77, 136, 0)  # H, W not multiples of the 8 x 32 tile, C of the 64 group
-K4_PER_BLOCK = 2
+K4_RAGGED = (2, 45, 77, 136, 0)  # H, W not multiples of the 8-column tile, C of 64 or 32
+# dw and db (f32 sums over B*H*W, rounded to bf16) against the f32 plain version:
+# |kernel - plain| <= K4_SUM_ATOL * max |plain| + K4_SUM_RTOL * |plain| per element. The
+# output's bf16 rounding is at most 2^-9 |plain|; the two f32 sums in other orders differ
+# by about 1e-6 of max |plain| (the sum of |g x| is about sqrt(B H W) times the sum's
+# typical size). A block's partial left out moves its 32 channels by a sum of rows * 8
+# products (its largest change is 10 or more times the limit at every shape here), a
+# dropped halo column every side tap by a sum of 1/8 of its products.
+K4_SUM_ATOL, K4_SUM_RTOL = 1e-3, 2.0 ** -8
 # one step of the kernel path (bf16 forward, f32 loss) against the f32 plain path: the
 # loss within 2e-2 relative (16 blocks round their residual stream to bf16, 2^-9
 # relative). Each parameter's gradient err = ||g - g_f32|| / ||g_f32|| within 5e-2, or,
@@ -794,6 +811,32 @@ def k6_bound(n):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k6_serial_step(torch, words):
+    """The latency of one step of the resolve's serial chain, measured on the card: nms.cu's
+    serial_chain_kernel runs K6_CHAIN_CHUNKS dependent scans of 64 steps over the diagonal
+    words of the first chunk of `words` and reads %globaltimer and %clock64 around them.
+    Returns (ns, SM cycles) per step, the least of K6_CHAIN_CALLS calls."""
+    import ctypes
+
+    from upliftingtabletennis_torch.ops import _build
+
+    lib = _build.library("nms.cu")
+    chain = lib.uttk_nms_serial_chain
+    chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    chain.restype = ctypes.c_int
+    diag = torch.zeros(64, dtype=torch.int64, device=words.device)
+    diag[:min(64, words.shape[0])] = words[:64, 0]
+    out = torch.zeros(3, dtype=torch.int64, device=words.device)
+    steps, best = K6_CHAIN_CHUNKS * 64, None
+    for _ in range(K6_CHAIN_CALLS):
+        status = _build.call_on_device(out, lambda stream: chain(
+            diag.data_ptr(), K6_CHAIN_CHUNKS, out.data_ptr(), stream))
+        _build.check(lib, status, "nms serial chain")
+        ns, cycles = out[1:].tolist()
+        best = min(best or (ns, cycles), (ns, cycles))
+    return best[0] / steps, best[1] / steps
+
+
 def nms_dets(n, seed):
     """(n, 5) f32 boxes as tests/test_nms.py makes them: x1, y1 uniform over 800 x 500,
     sides 10-200, scores uniform in [0, 1)."""
@@ -874,15 +917,27 @@ def run_k6(torch, ops):
         overlap_ms = time_ms(torch, lambda: k6.overlap_words(boxes, 0.5))
         resolve_ms = time_ms(torch, lambda: k6.resolve_words(words, order))
         call_ms = time_ms(torch, lambda: k6.nms_mask(dets, 0.5))
+        piped = {k: pipelined_ms(torch, f) for k, f in (
+            ("ms", lambda: k6.resolve_words(k6.overlap_words(boxes, 0.5), order)),
+            ("overlap_ms", lambda: k6.overlap_words(boxes, 0.5)),
+            ("resolve_ms", lambda: k6.resolve_words(words, order)))}
         plain_ms = time_ms(torch, lambda: k6.resolve_plain(k6.overlap_words_plain(boxes, 0.5),
                                                            order), iters=3, warmup=1)
         bound_ms, bound_by = k6_bound(n)
+        # the floor of a serial resolve: its 64 steps per chunk at the measured step latency
+        step_ns, step_cycles = k6_serial_step(torch, words)
+        floor_ms = 1e-6 * step_ns * 64 * words.shape[1]
         e = dict(n=n, thresh=0.5, ms=ms, overlap_ms=overlap_ms, resolve_ms=resolve_ms,
                  nms_mask_call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, launches_per_call=2)
+                 bound_by=bound_by, serial_floor_ms=floor_ms, serial_step_ns=step_ns,
+                 serial_step_cycles=step_cycles, launches_per_call=2,
+                 **{f"{k}_pipelined": v for k, v in piped.items()})
         log("k6", n=n, ms=f"{ms:.4f}", overlap_ms=f"{overlap_ms:.4f}",
             resolve_ms=f"{resolve_ms:.4f}", nms_mask_call_ms=f"{call_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+            pipelined=json.dumps({k: round(v, 5) for k, v in piped.items()}),
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+            serial_floor_ms=f"{floor_ms:.5f}", serial_step_ns=f"{step_ns:.4f}",
+            serial_step_cycles=f"{step_cycles:.3f}")
         timed.append(e)
     log("k6", calls=len(kept), launches=launches, differing_bits=bad_bits,
         keep_lists_differ=len(bad_keep), planted_fault_bits=json.dumps(fault_bits))
@@ -1676,7 +1731,7 @@ def run_vitpose(torch, ops, frames, profile=False):
 
 
 def k4_bound(B, H, W, C):
-    """(ms, bound_by) for K4: x read once, the output written once (bf16); 18 f32
+    """(ms, bound_by) for K4's forward: x read once, the output written once (bf16); 18 f32
     operations per element."""
     nbytes = 2 * (2 * B * H * W * C + 10 * C)
     flops = 18 * B * H * W * C
@@ -1684,68 +1739,162 @@ def k4_bound(B, H, W, C):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def run_k4(torch, F, ops, gen):
-    from upliftingtabletennis_torch.ops.dwconv import dwconv3x3_plain
+def k4_bwd_bound(B, H, W, C):
+    """(ms, bound_by) for K4's backward: g and x read once, dx written once (bf16), the taps
+    read and dw and db written once; 38 f32 operations per element (dx's 9 and dw's 9
+    multiply-adds, db's add)."""
+    nbytes = 2 * (3 * B * H * W * C + 9 * C) + 4 * 10 * C
+    flops = 38 * B * H * W * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    entries = []
+
+def k4_sums_ok(torch, got, want):
+    """(max abs err, ok) of dw or db against the f32 plain version at K4's sum limit."""
+    err = (got.float() - want).abs()
+    limit = K4_SUM_ATOL * want.abs().max() + K4_SUM_RTOL * want.abs()
+    return err.max().item(), bool((err <= limit).all())
+
+
+def k4_faults(torch, x, w, b, g, plans):
+    """K4's planted faults, simulated with the plain versions (f32) and rounded as the
+    kernels round: {name: (tensor, what it stands for)}. `plans` are the forward's and the
+    backward's `dwconv_plan`s; a fault needs a seam (two tiles) along its axis."""
+    from upliftingtabletennis_torch.ops.dwconv import TILE_C, TILE_W, dwconv3x3_plain
+
+    B, H, W, C = x.shape
+    fwd, bwd = plans
+    zero = torch.zeros(C, device=x.device)
+    xf, gf = x.float(), g.float()
+    out = {"unflipped_dx": (dwconv3x3_plain(gf, w.float(), zero).to(torch.bfloat16), "dx")}
+    if fwd.tiles_h > 1:  # the halo rows between the forward's row tiles dropped
+        out["halo_rows_dropped"] = (torch.cat(
+            [dwconv3x3_plain(xf[:, i:i + fwd.rows], w.float(), b.float())
+             for i in range(0, H, fwd.rows)], 1).to(torch.bfloat16), "out")
+
+    def sums(gm):  # dw and db of the cotangent gm, f32
+        xp = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1))
+        dw = torch.stack([torch.stack([(gm[j] * xp[:, i:i + H, j:j + W]).sum((0, 1, 2))
+                                       for j in range(3)]) for i in range(3)])
+        return dw, gm[1].sum((0, 1, 2))
+
+    # one block's partial sum left out: a block near the middle of sample 0, channel group 0
+    th, tw, cg = bwd.tiles_h // 2, bwd.tiles_w // 2, TILE_C[True]
+    gm = gf.clone()
+    gm[0, th * bwd.rows:(th + 1) * bwd.rows, tw * TILE_W:(tw + 1) * TILE_W, :cg] = 0
+    dw, db = sums([gm] * 3)
+    out["partial_left_out_dw"] = (dw.to(torch.bfloat16), "dw")
+    out["partial_left_out_db"] = (db.to(torch.bfloat16), "db")
+    if bwd.tiles_w > 1:  # dw without the halo columns at the tile seams: tap column 0 misses
+        # the x column left of each tile's first column, tap column 2 the one right of its last
+        col = torch.arange(W, device=x.device) % TILE_W
+        left, right = gf * (col != 0)[:, None], gf * (col != TILE_W - 1)[:, None]
+        out["halo_column_dropped_dw"] = (sums([left, gf, right])[0].to(torch.bfloat16), "dw")
+    return out
+
+
+def run_k4(torch, F, ops, gen):
+    from upliftingtabletennis_torch.ops import dwconv as k4
+
+    fwd_entries, bwd_entries = [], []
     for B, H, W, C, depth in K4_SHAPES + [K4_RAGGED]:
         def rnd(*shape, std=1.0):
             return (torch.randn(*shape, generator=gen, device=DEVICE) * std).to(torch.bfloat16)
 
         x, w, b, g = rnd(B, H, W, C), rnd(3, 3, C, std=1 / 3), rnd(C, std=0.1), rnd(B, H, W, C)
-        zero = torch.zeros(C, device=DEVICE)
+        plans = (k4.dwconv_plan(B, H, W, C), k4.dwconv_plan(B, H, W, C, backward=True))
 
         def kernel():
             return ops.depthwise_conv3x3(x, w, b)
 
         def plain():
-            return dwconv3x3_plain(x.float(), w.float(), b.float())
+            return k4.dwconv3x3_plain(x.float(), w.float(), b.float())
+
+        def backward():
+            return ops.dwconv3x3_backward(x, w, g)
+
+        def backward_plain():
+            return k4.dwconv3x3_backward_plain(x.float(), w.float(), g.float())
 
         got = kernel()
-        xg = x.clone().requires_grad_()
-        ops.depthwise_conv3x3(xg, w, b).backward(g)  # dx: K4 on g with the flipped taps
+        # the backward as the trainer reaches it: through the autograd Function
+        xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+        ops.depthwise_conv3x3(xg, wg, bg).backward(g)
+        # dw and db before their rounding to w's dtype, from two calls
+        sums = [k4._launch_backward(x, k4._dx_taps(w), g) for _ in range(2)]
         torch.cuda.synchronize()
         want = plain()
-        fwd_abs, fwd_rel, fwd_ok = compare(torch, got, want, K5_ATOL, K5_RTOL)
-        dx_want = dwconv3x3_plain(g.float(), w.flip((0, 1)).float(), zero)
-        dx_abs, dx_rel, dx_ok = compare(torch, xg.grad, dx_want, K5_ATOL, K5_RTOL)
-        # planted faults, simulated with the plain version and rounded as the kernel rounds
-        # (every shape here has H > 8: the rows between the kernel's 8-row tiles exist)
-        unflipped = dwconv3x3_plain(g.float(), w.float(), zero).to(torch.bfloat16)
-        no_halo = torch.cat([dwconv3x3_plain(x[:, i:i + 8].float(), w.float(), b.float())
-                             for i in range(0, H, 8)], 1).to(torch.bfloat16)
-        caught = {"unflipped_dx": not compare(torch, unflipped, dx_want, K5_ATOL, K5_RTOL)[2],
-                  "halo_rows_dropped": not compare(torch, no_halo, want, K5_ATOL, K5_RTOL)[2]}
-        del want, dx_want, unflipped, no_halo, xg
+        dx_want, dw_want, db_want = backward_plain()
+        fwd_abs, _, fwd_ok = compare(torch, got, want, K5_ATOL, K5_RTOL)
+        dx_abs, _, dx_ok = compare(torch, xg.grad, dx_want, K5_ATOL, K5_RTOL)
+        dw_abs, dw_ok = k4_sums_ok(torch, wg.grad, dw_want)
+        db_abs, db_ok = k4_sums_ok(torch, bg.grad, db_want)
+        repeat = all(torch.equal(a, c) for a, c in zip(*sums))
+        refs = {"out": want, "dx": dx_want, "dw": dw_want, "db": db_want}
+        caught = {}
+        for name, (bad, what) in k4_faults(torch, x, w, b, g, plans).items():
+            caught[name] = not (k4_sums_ok(torch, bad, refs[what])[1] if what in ("dw", "db")
+                                else compare(torch, bad, refs[what], K5_ATOL, K5_RTOL)[2])
+        del want, dx_want, xg, sums
         w_conv = w.permute(2, 0, 1).unsqueeze(1).contiguous()
-        x_cl = x.permute(0, 3, 1, 2)  # NHWC memory: a channels_last NCHW view
+        x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # NHWC: channels_last views
 
         def library():
             return F.conv2d(x_cl, w_conv, b, padding=1, groups=C)
 
+        def library_backward():
+            return torch.ops.aten.convolution_backward(
+                g_cl, x_cl, w_conv, [C], (1, 1), (1, 1), (1, 1), False, (0, 0), C,
+                [True, True, True])
+
         lib_err = (library().permute(0, 2, 3, 1).float() - got.float()).abs().max().item()
+        lib_dw = library_backward()[1][:, 0].permute(1, 2, 0).float()
+        lib_dw_err = (lib_dw - dw_want).abs().max().item()
         ms, plain_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
             time_ms(torch, library)
+        bwd_ms, bwd_plain_ms, bwd_lib_ms = time_ms(torch, backward), \
+            time_ms(torch, backward_plain, iters=5), time_ms(torch, library_backward)
+        piped = {k: pipelined_ms(torch, f) for k, f in (("fwd", kernel), ("fwd_lib", library),
+                                                        ("bwd", backward),
+                                                        ("bwd_lib", library_backward))}
         bound_ms, bound_by = k4_bound(B, H, W, C)
-        ok = fwd_ok and dx_ok
-        e = dict(shape=dict(B=B, H=H, W=W, C=C), depth=depth, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 max_abs_err=max(fwd_abs, dx_abs), fwd_max_abs_err=fwd_abs,
-                 dx_max_abs_err=dx_abs, faults_caught=caught, library_vs_kernel_max_abs=lib_err)
+        bwd_bound_ms, bwd_bound_by = k4_bwd_bound(B, H, W, C)
+        shape = dict(B=B, H=H, W=W, C=C)
+        fwd_entries.append(dict(
+            shape=shape, depth=depth, plan=plans[0]._asdict(), ms=ms,
+            ms_pipelined=piped["fwd"], plain_ms=plain_ms, library_ms=lib_ms,
+            library_ms_pipelined=piped["fwd_lib"], bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=fwd_abs, library_vs_kernel_max_abs=lib_err))
+        bwd_entries.append(dict(
+            shape=shape, depth=depth, plan=plans[1]._asdict(), ms=bwd_ms,
+            ms_pipelined=piped["bwd"], plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
+            library_ms_pipelined=piped["bwd_lib"], bound_ms=bwd_bound_ms,
+            bound_by=bwd_bound_by, max_abs_err=max(dx_abs, dw_abs, db_abs),
+            dx_max_abs_err=dx_abs, dw_max_abs_err=dw_abs, db_max_abs_err=db_abs,
+            dw_db_repeat_bitwise=repeat, faults_caught=caught,
+            library_dw_vs_plain_max_abs=lib_dw_err))
+        ok = fwd_ok and dx_ok and dw_ok and db_ok
         log("k4", B=B, H=H, W=W, C=C, fwd_max_abs_err=f"{fwd_abs:.4g}",
-            dx_max_abs_err=f"{dx_abs:.4g}", ms=f"{ms:.4f}", conv2d_ms=f"{lib_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            faults_caught=json.dumps(caught), ok=ok)
+            dx_max_abs_err=f"{dx_abs:.4g}", dw_max_abs_err=f"{dw_abs:.4g}",
+            db_max_abs_err=f"{db_abs:.4g}", repeat_bitwise=repeat, ms=f"{ms:.4f}",
+            ms_pipelined=f"{piped['fwd']:.4f}", conv2d_ms=f"{lib_ms:.4f}",
+            conv2d_ms_pipelined=f"{piped['fwd_lib']:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+            bwd_ms_pipelined=f"{piped['bwd']:.4f}", conv_backward_ms=f"{bwd_lib_ms:.4f}",
+            conv_backward_ms_pipelined=f"{piped['bwd_lib']:.4f}",
+            bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_bound_ms=f"{bwd_bound_ms:.4f}",
+            rows=f"{plans[0].rows}/{plans[1].rows}", faults_caught=json.dumps(caught), ok=ok)
         if not ok:
             raise AssertionError(f"K4 disagrees with its plain version at {(B, H, W, C)}: "
-                                 f"forward {fwd_abs}, dx {dx_abs}")
+                                 f"forward {fwd_abs}, dx {dx_abs}, dw {dw_abs}, db {db_abs}")
+        if not repeat:
+            raise AssertionError(f"K4's backward does not repeat bit for bit at {(B, H, W, C)}")
         if not all(caught.values()):
-            raise AssertionError(f"K4's limit does not reject a planted fault at "
+            raise AssertionError(f"K4's limits do not reject a planted fault at "
                                  f"{(B, H, W, C)}: {caught}")
-        entries.append(e)
         del x, g, got
     torch.cuda.empty_cache()
-    return entries
+    return fwd_entries, bwd_entries
 
 
 def grad_limit_ratios(errs, noise):
@@ -1916,7 +2065,7 @@ def run_train(torch, ops, frames, profile=False):
     launches = {k: getattr(ops, k).launches for k in ops.ALL}
     want = {k: 0 for k in ops.ALL}
     want.update(fused_attention_block=B2_PER_FORWARD, fused_ln_ffn=B2_PER_FORWARD,
-                depthwise_conv3x3=K4_PER_BLOCK * B2_PER_FORWARD)
+                depthwise_conv3x3=B2_PER_FORWARD, dwconv3x3_backward=2 * B2_PER_FORWARD)
     log("train", step="b", launches=json.dumps(launches), first_step_s=f"{first_step_s:.3f}")
     if launches != want:
         raise AssertionError(f"a b2 training step launched {launches}, expected {want}")
@@ -2046,7 +2195,12 @@ def k6_summary(k6_res):
             "launches": k6_res["launches"]["overlap_words"] + k6_res["launches"]["resolve_words"],
             "max_abs_err": k6_res["differing_bits"],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None,
+            "bound_by": head["bound_by"],
+            "overlap_ms": head["overlap_ms"], "resolve_ms": head["resolve_ms"],
+            "ms_pipelined": head["ms_pipelined"],
+            "overlap_ms_pipelined": head["overlap_ms_pipelined"],
+            "resolve_ms_pipelined": head["resolve_ms_pipelined"],
+            "library_ms": None,
             "library_note": "no single PyTorch call computes greedy NMS (torchvision is not "
                             "installed)",
             "per": f"one nms_mask call at N = {head['n']}, thresh 0.5: its 2 launches "
@@ -2110,8 +2264,10 @@ def main() -> int:
         overlap_words = k6.overlap_words  # K6's two kernels: 2 launches per nms_mask call
         resolve_words = k6.resolve_words
         depthwise_conv3x3 = k4.depthwise_conv3x3
+        dwconv3x3_backward = k4.dwconv3x3_backward  # 2 launches per call: the pass and its sum
         ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act",
-               "flash_cross_attention", "overlap_words", "resolve_words", "depthwise_conv3x3")
+               "flash_cross_attention", "overlap_words", "resolve_words", "depthwise_conv3x3",
+               "dwconv3x3_backward")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen, profile=opts.profile)
@@ -2130,7 +2286,7 @@ def main() -> int:
     k6_res = run_k6(torch, Ops)
     vit_res = run_vitpose(torch, Ops, frames, profile=opts.profile)
     torch.cuda.empty_cache()
-    k4_entries = run_k4(torch, F, Ops, gen)
+    k4_entries, k4_bwd_entries = run_k4(torch, F, Ops, gen)
     train_res = run_train(torch, Ops, frames, profile=opts.profile)
 
     # 17. hygiene
@@ -2139,13 +2295,13 @@ def main() -> int:
         raise AssertionError(f"imported {banned}")
     log("hygiene", jax_free=True)
 
-    def summary(name, source, replaces, entries, launches=None, per=None, scale=1):
+    def summary(name, source, replaces, entries, launches=None, per=None):
         staged = [e for e in entries if e["depth"]]
 
         def per_forward(key):  # summed over the launches of one forward (or step)
-            return sum(e[key] * e["depth"] * scale for e in staged)
+            return sum(e[key] * e["depth"] for e in staged)
 
-        bytes_share = sum(e["bound_ms"] * e["depth"] * scale for e in staged
+        bytes_share = sum(e["bound_ms"] * e["depth"] for e in staged
                           if e["bound_by"] == "bytes")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": slice_res["launches"][name] if launches is None else launches,
@@ -2204,10 +2360,18 @@ def main() -> int:
         k6_summary(k6_res),
         summary("depthwise_conv3x3", "upliftingtabletennis_torch/ops/csrc/dwconv.cu",
                 "upliftingtabletennis_tpu/ops/dwconv.py:50", k4_entries,
-                launches=train_res["launches"]["depthwise_conv3x3"], scale=K4_PER_BLOCK,
+                launches=train_res["launches"]["depthwise_conv3x3"],
                 per=f"one b2 training step at batch {TRAIN_BATCH}, 1600x896 (sum over its "
-                    f"{K4_PER_BLOCK * B2_PER_FORWARD} launches: K2's recompute and its dx in "
-                    f"each of the 16 blocks, at the block's hidden shape)"),
+                    f"{B2_PER_FORWARD} launches: K2's recompute in each of the 16 blocks, at "
+                    f"the block's hidden shape)"),
+        summary("dwconv3x3_backward", "upliftingtabletennis_torch/ops/csrc/dwconv.cu",
+                "upliftingtabletennis_tpu/ops/dwconv.py:155", k4_bwd_entries,
+                launches=train_res["launches"]["dwconv3x3_backward"],
+                per=f"one b2 training step at batch {TRAIN_BATCH}, 1600x896 (sum over its "
+                    f"{B2_PER_FORWARD} calls, {2 * B2_PER_FORWARD} launches: each call the fused "
+                    f"pass and the sum of its partials: "
+                    f"dx, dw and db of K2's recompute in each of the 16 blocks); library: "
+                    f"aten.convolution_backward (dx, dw, db) in channels_last bf16"),
     ]
     total = time.time() - T0
     if opts.out:
@@ -2215,7 +2379,8 @@ def main() -> int:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
                        "probe": probe_res, "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
                        "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
-                       "vitpose": vit_res, "k4": k4_entries, "train": train_res,
+                       "vitpose": vit_res, "k4": k4_entries, "k4_backward": k4_bwd_entries,
+                       "train": train_res,
                        "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,8 +21,11 @@ of its bf16 roundings, 2^-8 (|plain| + softmax(q kᵀ) |v|) per element (`k3_lim
 K6 (box NMS) is exact: its suppression words equal the plain version's bit for bit
 and its keep mask the plain resolve's, at ragged N (one box, N around the 64-box
 word) and on boxes where ties and exact roundings decide. K4 (depthwise 3x3) is held
-at K5's tolerance (only its output is rounded to bf16), forward and dx, at the b2
-hidden shapes of the 1600x896 trainer and ragged ones. The differentiable wrappers
+at K5's tolerance (only its output is rounded to bf16), forward and dx, and dw and db
+at chip_smoke.py's K4 sum limit (1e-3 max |plain| + 2^-8 |plain|: the f32 sums in
+another order, rounded to bf16), at the b2 hidden shapes of the 1600x896 trainer and
+ragged ones; its backward's dw and db repeat bit for bit, and its launchers refuse a
+plan that is not one for their tiles. The differentiable wrappers
 (K1, K2, K3 and K4 through their autograd Functions) give the gradients of their f32
 plain versions within 5e-2 in relative norm per input (bf16 operands and
 recomputation); a b2 SegFormer in training mode gives every parameter a finite
@@ -32,7 +35,9 @@ import pytest
 import torch
 
 from upliftingtabletennis_torch.models.segformer import SegFormerNet
-from upliftingtabletennis_torch.ops.dwconv import depthwise_conv3x3, dwconv3x3_plain
+from upliftingtabletennis_torch.ops import dwconv as k4
+from upliftingtabletennis_torch.ops.dwconv import (depthwise_conv3x3, dwconv3x3_backward,
+                                                   dwconv3x3_backward_plain, dwconv3x3_plain)
 from upliftingtabletennis_torch.ops.flash_attention import (cross_attention_plain,
                                                             flash_cross_attention)
 from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plain,
@@ -53,6 +58,7 @@ pytestmark = pytest.mark.cuda
 ATOL, RTOL = 6e-2, 2e-2
 K5_ATOL, K5_RTOL = 1e-2, 8e-3
 GRAD_REL = 5e-2  # per-input ||g_kernel - g_plain|| / ||g_plain||, as chip_smoke.py's train phase
+K4_SUM_ATOL, K4_SUM_RTOL = 1e-3, 2.0 ** -8  # dw and db, as chip_smoke.py's k4 phase
 
 
 def k3_limit(q, k, v, want, scale=None):
@@ -403,11 +409,10 @@ def test_k6_rejects_bfloat16_boxes(gen):
 
 @pytest.mark.parametrize("n", [78_592, "max", "over"])
 def test_k6_resolve_limit(gen, n):
-    """The resolve's shared memory holds every N up to uttk_nms_max_boxes(): 78,592
-    boxes fill it to the last byte before the chunk of mask rows halves, the limit
-    itself takes one row per chunk, and one box more is refused. The boxes come in
-    identical pairs with tied scores on a grid where no pairs overlap, so the first
-    box of each pair is kept and row 2k holds the single bit 2k + 1."""
+    """The resolve takes every N up to uttk_nms_max_boxes() (its `removed` words fill its
+    shared memory): 78,592 boxes, the limit itself, and one box more is refused. The
+    boxes come in identical pairs with tied scores on a grid where no pairs overlap, so
+    the first box of each pair is kept and row 2k holds the single bit 2k + 1."""
     limit = k6._lib().uttk_nms_max_boxes()
     if n == "over":
         with pytest.raises(ValueError, match="at most"):
@@ -429,24 +434,70 @@ def test_k6_resolve_limit(gen, n):
 
 
 # b2's four hidden shapes at 1600x896, batch 4 (the trainer's), and ragged ones: H and W
-# not multiples of the 8 x 32 tile, C not a multiple of the 64-channel group
+# not multiples of the 8-column tile or the plan's rows, C not a multiple of the
+# forward's 64-channel or the backward's 32-channel group
 @pytest.mark.parametrize("B,H,W,C", [
     (4, 224, 400, 256), (4, 112, 200, 512), (4, 56, 100, 1280), (4, 28, 50, 2048),
     (2, 9, 37, 64), (1, 17, 33, 8), (2, 3, 5, 136), (1, 1, 1, 16),
 ])
 def test_k4_kernel_matches_plain(gen, B, H, W, C):
     x = _rnd(gen, B, H, W, C).requires_grad_()
-    w, b = _rnd(gen, 3, 3, C, std=1 / 3), _rnd(gen, C, std=0.1)
+    w, b = _rnd(gen, 3, 3, C, std=1 / 3).requires_grad_(), _rnd(gen, C, std=0.1).requires_grad_()
     g = _rnd(gen, B, H, W, C)
-    before = depthwise_conv3x3.launches
+    before = (depthwise_conv3x3.launches, dwconv3x3_backward.launches)
     got = depthwise_conv3x3(x, w, b)
-    got.backward(g)  # dx: K4 on g with the flipped taps
+    got.backward(g)  # the backward kernel: dx (g with the flipped taps), dw and db
     torch.cuda.synchronize()
-    assert depthwise_conv3x3.launches == before + 2
-    want = dwconv3x3_plain(x.detach().float(), w.float(), b.float())
+    # one forward launch; the backward's fused pass and the sum of its partials
+    assert (depthwise_conv3x3.launches, dwconv3x3_backward.launches) == (before[0] + 1,
+                                                                         before[1] + 2)
+    want = dwconv3x3_plain(x.detach().float(), w.detach().float(), b.detach().float())
     torch.testing.assert_close(got.detach().float(), want, atol=K5_ATOL, rtol=K5_RTOL)
-    dx = dwconv3x3_plain(g.float(), w.flip((0, 1)).float(), torch.zeros(C, device="cuda"))
+    dx, dw, db = dwconv3x3_backward_plain(x.detach().float(), w.detach().float(), g.float())
     torch.testing.assert_close(x.grad.float(), dx, atol=K5_ATOL, rtol=K5_RTOL)
+    for got_sum, want_sum in ((w.grad, dw), (b.grad, db)):
+        assert got_sum.dtype == torch.bfloat16
+        limit = K4_SUM_ATOL * want_sum.abs().max() + K4_SUM_RTOL * want_sum.abs()
+        assert bool(((got_sum.float() - want_sum).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("B,H,W,C", [(4, 56, 100, 1280), (2, 45, 77, 136)])
+def test_k4_backward_repeats_bit_for_bit(gen, B, H, W, C):
+    """No float atomics: dw and db (the f32 sums, before their rounding) and dx of two
+    calls on the same inputs are equal bit for bit."""
+    x, w, g = _rnd(gen, B, H, W, C), _rnd(gen, 3, 3, C, std=1 / 3), _rnd(gen, B, H, W, C)
+    first, second = (k4._launch_backward(x, k4._dx_taps(w), g) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert first[1].dtype == first[2].dtype == torch.float32
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_k4_refuses_a_plan_for_other_tiles(gen, backward):
+    """The C launchers check the host plan against their own tiles: the plan runs, and a
+    plan one tile short in any axis is refused before anything is launched."""
+    B, H, W, C = 2, 45, 77, 136
+    x = _rnd(gen, B, H, W, C)
+    plan = k4.dwconv_plan(B, H, W, C, backward)
+    out, sums = torch.empty_like(x), torch.empty(k4.PARTS, C, device="cuda")
+    scratch = torch.empty(max(plan.partials, 1), k4.PARTS, C, device="cuda")
+    lib, stream = k4._lib(), torch.cuda.current_stream().cuda_stream
+
+    def launch(rows, tiles_w, tiles_h, groups, partials):
+        if backward:
+            return lib.uttk_dwconv3x3_backward(
+                x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                sums.data_ptr(), B, H, W, C, rows, tiles_w, tiles_h, groups, partials, stream)
+        return lib.uttk_dwconv3x3(x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                  B, H, W, C, rows, tiles_w, tiles_h, groups, stream)
+
+    assert launch(*plan) == 0
+    torch.cuda.synchronize()
+    for axis in range(1, 4):
+        short = list(plan)
+        short[axis] -= 1
+        assert launch(*short) != 0, plan._fields[axis]
 
 
 def test_k4_rejects_channels_not_multiple_of_8(gen):
@@ -476,11 +527,13 @@ def test_k1_k2_gradients_match_plain(gen, B, H, W, C, heads, Nkv):
            _rnd(gen, C, HID, std=C ** -0.5), _rnd(gen, HID, std=0.1),
            _rnd(gen, 3, 3, HID, std=1 / 3), _rnd(gen, HID, std=0.1),
            _rnd(gen, HID, C, std=HID ** -0.5), _rnd(gen, C, std=0.1)]
-    before = (fused_ln_ffn.launches, depthwise_conv3x3.launches)
+    counts = (fused_ln_ffn, depthwise_conv3x3, dwconv3x3_backward)
+    before = [f.launches for f in counts]
     _grads_close(lambda x, *p: fused_ln_ffn(x, H, W, *p),
                  lambda x, *p: ln_ffn_plain(x, H, W, *p), ffn)
-    # K2 forward once; its recompute backward runs K4 twice (the recompute and its dx)
-    assert (fused_ln_ffn.launches, depthwise_conv3x3.launches) == (before[0] + 1, before[1] + 2)
+    # K2 forward once; its recompute backward runs K4's forward once and K4's backward once
+    # (two launches: the fused pass and the sum of its partials)
+    assert [f.launches - n for f, n in zip(counts, before)] == [1, 1, 2]
     attn = [_rnd(gen, B, H * W, C), 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
             _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.1), _rnd(gen, B, Nkv, heads, hd),
             _rnd(gen, B, Nkv, heads, hd), _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.1)]

@@ -12,7 +12,8 @@
   separate backward passes would compare noise), within 1e-6, with and without clipping;
 * the CLI end to end on a tiny TTHQ layout (b0, ball and table, 128x96, 2 steps, a
   validation pass, on the CPU), whose checkpoint `BallDetector` / `TableDetector` loads;
-  the unported options raise.
+  `--debug_nans`, and `--debug`, which implies it, turn on autograd anomaly detection
+  (the JAX trainer's jax_debug_nans); the unported options raise.
 f32 throughout; JAX pinned to full-f32 matmuls (tests/conftest.py).
 """
 import glob
@@ -207,6 +208,26 @@ def test_cli_trains_validates_and_saves_a_loadable_checkpoint(fake_tthq, tmp_pat
         det = TableDetector("segformerpp_b0", checkpoint=ckpt, device="cpu", resolution=(128, 96))
         kps, _ = det.predict([frames[0]])
         assert kps.shape == (1, 13, 3) and np.isfinite(kps[..., :2]).all()
+
+
+@pytest.mark.parametrize("flag", ["--debug_nans", "--debug"])
+def test_cli_debug_nans_turns_on_anomaly_detection(fake_tthq, tmp_path, flag):
+    """The JAX trainer's `--debug_nans` (and `--debug`, which implies it) is accepted and
+    turns on the NaN check: autograd anomaly detection, for the steps of the run."""
+    save, logs = tmp_path / "ckpt", tmp_path / "runs"
+    assert not torch.is_anomaly_enabled()
+    try:
+        T.main(["--task", "ball", "--model", "segformerpp_b0", "--data_root", fake_tthq,
+                "--batch_size", "2", "--num_epochs", "1", "--val_iterations", "2",
+                "--max_steps", "1", "--resolution", "64", "64", "--eval_resolution", "128",
+                "96", "--save_dir", str(save), "--logdir", str(logs), "--device", "cpu", flag])
+        assert torch.is_anomaly_enabled()
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+    # --debug also sends the logs and checkpoints to <dir>_tmp
+    suffix = "_tmp" if flag == "--debug" else ""
+    assert glob.glob(str(tmp_path / f"ckpt{suffix}" / "*" / "model.pt"))
+    assert glob.glob(str(tmp_path / f"runs{suffix}" / "*" / "metrics.jsonl"))
 
 
 @pytest.mark.parametrize("flags,item", [

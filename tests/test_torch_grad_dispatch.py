@@ -1,8 +1,9 @@
 """Every CUDA kernel wrapper of the port is either differentiable or refuses a call that
 autograd would record: K1, K2, K3 and K4 run through their autograd Functions, K5a and
 K5b raise. Run here with no card: the kernel path is faked, each wrapper's `_launch`
-replaced by its plain version behind a guard that refuses operands autograd would record
-(the real launch returns a tensor with no `grad_fn`, which silently drops the gradient).
+(and K4's `_launch_backward`) replaced by its plain version behind a guard that refuses
+operands autograd would record (the real launch returns a tensor with no `grad_fn`,
+which silently drops the gradient).
 
 The gradients through the faked kernel path must equal those of the plain versions,
 also for a whole SegFormer-b0 in training mode (every parameter gets one).
@@ -28,6 +29,11 @@ def _refusing(plain, calls):
     return launch
 
 
+def _dw_backward_plain(x, taps, g):
+    """K4's backward kernel faked: its operands are dx's taps (the flipped kernel), not w."""
+    return dwconv.dwconv3x3_backward_plain(x, dwconv._dx_taps(taps), g)
+
+
 def _conv_plain(wrapper, x, p, residual, relu):
     w, b = fused_conv.unpack(p)
     plain = fused_conv.conv3x3_bias_act_plain if p.ks == 3 else fused_conv.conv1x1_bias_act_plain
@@ -45,6 +51,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(flash_attention, "_launch",
                         _refusing(flash_attention.cross_attention_plain, calls))
     monkeypatch.setattr(dwconv, "_launch", _refusing(dwconv.dwconv3x3_plain, calls))
+    monkeypatch.setattr(dwconv, "_launch_backward", _refusing(_dw_backward_plain, calls))
     monkeypatch.setattr(fused_conv, "_launch", _refusing(_conv_plain, calls))
     return calls
 
@@ -80,9 +87,9 @@ def test_k1_k2_k3_k4_are_differentiable_on_the_kernel_path(fake_card):
     _grads_match(dwconv.depthwise_conv3x3, dwconv.dwconv3x3_plain,
                  _leaves(gen, (B, H, W, C), (3, 3, C), (C,)))
     kinds = {f.__name__ for f in fake_card}
-    # K2's backward recomputes through K4: the forward's kernel and the recompute's two
+    # K2's backward recomputes through K4: its forward kernel, then its backward kernel
     assert kinds == {"ln_ffn_plain", "attention_block_plain", "cross_attention_plain",
-                     "dwconv3x3_plain"}
+                     "dwconv3x3_plain", "_dw_backward_plain"}
 
 
 def test_k5_raises_under_grad_on_the_kernel_path(fake_card):

@@ -190,8 +190,11 @@ def _parser():
                    help="leave invisible-ball samples out of training and validation")
     p.add_argument("--exp_id", type=str, default=None,
                    help="experiment tag in the run identifier")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="autograd anomaly detection: a NaN in the backward raises where it "
+                        "arose (the JAX trainer's jax_debug_nans)")
     p.add_argument("--debug", action="store_true",
-                   help="logs and checkpoints to <dir>_tmp, autograd anomaly detection")
+                   help="logs and checkpoints to <dir>_tmp, and --debug_nans")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -215,8 +218,10 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     if args.debug:
+        args.debug_nans = True
         args.logdir = args.logdir.rstrip("/") + "_tmp"
         args.save_dir = args.save_dir.rstrip("/") + "_tmp"
+    if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if args.num_epochs is None:
         args.num_epochs = 50 if args.task == "ball" else 700
