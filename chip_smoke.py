@@ -115,7 +115,28 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             steps), images/s and peak memory; (e) the CLI on the card: 2 steps and a
             validation pass on a tiny TTHQ layout written as PNGs, its checkpoint loaded by
             `BallDetector`;
-17. hygiene  neither JAX nor the JAX package was imported.
+17. rally  `hub.full_pipeline()` (seeded random weights, chunk 8) on 64 synthetic 1920x1080
+            frames at 50 fps through `TableTennisPipeline.run_rally`, the main path: launches
+            per piece (32 K1, 32 K2, 80 K5a, 28 K5b; half of each on a ball-only piece of
+            `table_stride` 16) with every count set to 0 just before and read just after;
+            frames/s (median and range of 3 warm calls) in rgb and i420, with upload_res
+            "model" and None, table_stride 1 and 2; the host downscale's ms per frame and
+            the rate it would leave if it overlapped nothing (`no_overlap_frames_per_s`); every
+            detector's peaks through the slab step (`_rally_peaks`) on 61 frames (triplets
+            across piece edges, a padded last piece) against the detector's own `predict`
+            within 1e-3 px; rgb against i420 (shapes equal, the largest peak difference);
+            i420 -> RGB of the 64 frames on the card against the CPU within 1 grey level;
+            the uplifting tail (a pipeline whose ball aux is its ball main, so the filter
+            keeps every interior frame): pos3d and the world-frame spin against the CPU f32
+            model on the same inputs;
+18. uplifting `hub.uplifting()` (connectstage / large, seeded weights) at T = 50 and a
+            padded T = 12 against its CPU f32 copy; ms per call on the card and the CPU;
+19. calib   `TableTennisPipeline.calibrate_camera` on the 13 table points projected through
+            a known 1920x1080 camera with 1 px noise and one gross outlier: inlier count,
+            the outlier rejected, the mean reprojection error (`reproject` on the card) of
+            the others under 3 px (tests/test_calibration.py's bounds), on the card and on
+            the CPU; ms per call;
+20. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -269,6 +290,29 @@ ZERO_GRAD = ("backbone.stage_norm_3.bias", "decode_head.linear_c0.bias",
 ZERO_GRAD_REL = 1e-3
 TRAIN_STEPS = 10
 K3_GRAD_SHAPE = (2, 13440, 1400, 2, 64)  # b2 ToMe stage 2 at batch 2
+
+# the rally: 64 frames at 50 fps through the production ensemble at chunk 8 (8 pieces);
+# the slab check on 61 frames: 7 whole pieces and a last piece of 5 padded to 8
+RALLY_FRAMES, RALLY_FPS, RALLY_CALLS, RALLY_EDGE_FRAMES = 64, 50.0, 3, 61
+# launches of one piece with table frames: two b2 (16 K1 + 16 K2 each), WASB and the table
+# HRNet (40 K5a + 14 K5b each); a ball-only piece runs half of each
+RALLY_PER_PIECE = {"fused_attention_block": 32, "fused_ln_ffn": 32, "conv3x3_bias_act": 80,
+                   "conv1x1_bias_act": 28}
+# the slab step against `predict` on the same triplets: the same kernels on the same images
+SLAB_TOL_PX = 1e-3
+# the uplifting model on the card (f32, no TF32) against its CPU copy: positions within
+# 1e-4 of max |positions| and the world-frame spin within 1e-4 of |spin|, the same f32
+# arithmetic summed in another order through 16 layers (the CPU tests hold the port to JAX
+# at the same 1e-4). The card returns the spin in the flight frame of its own first step;
+# the check turns it back with the card's own positions, so that the frame's turn, large
+# where that step is short, does not enter the comparison.
+UPLIFT_RTOL = 1e-4
+UPLIFT_LENGTHS = (50, 12)  # a full sequence and one padded to SEQUENCE_LEN
+# the calibration: a broadcast camera at 1920x1080, 1 px noise, keypoint 3 moved by
+# (300, -200) px; tests/test_calibration.py's bounds: the others within 3 px on average,
+# the outlier beyond 50 px
+CALIB_RES, CALIB_NOISE_PX, CALIB_OUTLIER = (1920, 1080), 1.0, (3, (300.0, -200.0))
+CALIB_MEAN_PX, CALIB_OUTLIER_PX, CALIB_CALLS = 3.0, 50.0, 5
 
 
 def sass_counts(_build, sources, ops=("HGMMA", "UTMALDG", "UTMASTG", "HMMA")):
@@ -1377,20 +1421,26 @@ def check_peaks(name, det, pos, n, per_frame, stride=4):
         raise AssertionError(f"{name}: peaks outside the {WIDTH}x{HEIGHT} frame")
 
 
-def drive(torch, ops, det, items, expected):
-    """The main path of one detector: every launch count set to 0 just before
-    `det.predict(items)` and read just after; fails unless they equal `expected`.
-    Returns (peaks, seconds, launches)."""
+def counted(torch, ops, fn, expected):
+    """A main path: every launch count set to 0 just before `fn()` and read just after;
+    fails unless they equal `expected` (0 for a kernel it does not name). Returns
+    (fn's result, seconds, launches)."""
     for k in ops.ALL:
         getattr(ops, k).launches = 0
     t = time.time()
-    pos = det.predict(items)[0]
+    out = fn()
     secs = time.time() - t
     launches = {k: getattr(ops, k).launches for k in ops.ALL}
     want = {k: expected.get(k, 0) for k in ops.ALL}
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
-    return pos, secs, launches
+    return out, secs, launches
+
+
+def drive(torch, ops, det, items, expected):
+    """The main path of one detector, `det.predict(items)`, counted. Returns (peaks,
+    seconds, launches)."""
+    return counted(torch, ops, lambda: det.predict(items)[0], expected)
 
 
 def chunk_images(torch, items):
@@ -2135,6 +2185,291 @@ def run_train(torch, ops, frames, profile=False):
     return res
 
 
+def rally_launches(pipe, n_frames, table_stride):
+    """Launches of one rally: RALLY_PER_PIECE per piece with table frames, half of each on a
+    ball-only piece."""
+    chunk = pipe.ball_detector.chunk
+    n_pieces = -(-n_frames // chunk)
+    with_table = len({c // chunk for c in range(0, n_frames, table_stride)})
+    return {k: v * with_table + v // 2 * (n_pieces - with_table)
+            for k, v in RALLY_PER_PIECE.items()}
+
+
+def result_shapes(out):
+    return {k: None if v is None else tuple(v.shape) for k, v in out.items()}
+
+
+def uplift_check(torch, cpu_model, inputs, got, what):
+    """The card's (spin, pos3d) against the CPU f32 copy on the same normalised inputs
+    (ball, table, mask, times): the position error over max |pos3d| and the world-frame
+    spin's error over |spin| (UPLIFT_RTOL each). The card's flight-frame spin is turned
+    back into the world frame with the card's own positions. Raises past the limits."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core.geometry import inverse_transform_rotation_axes
+
+    b, t, m, tt = (torch.as_tensor(a) for a in inputs)
+    with torch.no_grad():
+        rot, pos = cpu_model.model(b, t, m, tt)
+    rot, pos = rot[0].numpy(), pos[0, :len(got[1])].numpy()
+    spin_card = inverse_transform_rotation_axes(torch.from_numpy(got[0]),
+                                                torch.from_numpy(got[1])).numpy()
+    err = {"pos3d": float(np.abs(got[1] - pos).max() / np.abs(pos).max()),
+           "spin": float(np.linalg.norm(spin_card - rot) / np.linalg.norm(rot))}
+    if got[1].shape != pos.shape or not (err["pos3d"] <= UPLIFT_RTOL
+                                         and err["spin"] <= UPLIFT_RTOL):
+        raise AssertionError(f"{what}: the uplifting model on the card differs from the CPU: "
+                             f"{err}")
+    return err
+
+
+def run_rally_phase(torch, ops, pipe, profile=False):
+    import copy
+
+    import numpy as np
+
+    from upliftingtabletennis_torch import hub
+    from upliftingtabletennis_torch.data.image_transforms import (host_downscale, i420_to_rgb,
+                                                                  rgb_to_i420)
+    from upliftingtabletennis_torch.pipeline import filters
+    from upliftingtabletennis_torch.pipeline.interface import HEIGHT, WIDTH, UpliftingModel
+
+    frames = synthetic_frames(RALLY_FRAMES)
+    inputs = {"rgb": frames, "i420": rgb_to_i420(frames)}
+    chunk = pipe.ball_detector.chunk
+    for fmt, x in inputs.items():  # warm-up: cuDNN's algorithms, the allocator, pinned blocks
+        for up in ("model", None):
+            pipe.run_rally(x[:2 * chunk], RALLY_FPS, pixel_format=fmt, upload_res=up)
+    torch.cuda.synchronize()
+
+    # the main path, counted: every piece with table frames, then every other piece ball-only
+    out, secs, launches = counted(torch, ops, lambda: pipe.run_rally(frames, RALLY_FPS),
+                                  rally_launches(pipe, RALLY_FRAMES, 1))
+    if (out["ball"].shape != (len(out["valid_idx"]), 2) or out["table"].shape != (13, 3)
+            or not np.isfinite(out["ball"]).all()):
+        raise AssertionError(f"run_rally returned {result_shapes(out)}")
+    stride = 2 * chunk
+    _, _, launches_strided = counted(
+        torch, ops, lambda: pipe.run_rally(frames, RALLY_FPS, table_stride=stride),
+        rally_launches(pipe, RALLY_FRAMES, stride))
+    log("rally", frames=RALLY_FRAMES, chunk=chunk, launches=launches,
+        launches_table_stride_16=launches_strided, first_call_s=f"{secs:.3f}",
+        ball_kept=len(out["valid_idx"]), table_visible=int(out["table"][:, 2].sum()))
+
+    # frames/s: the median and range of RALLY_CALLS warm calls of each configuration
+    rates, shapes = {}, {}
+    for fmt, x in inputs.items():
+        for up in ("model", None):
+            for st in (1, 2):
+                key = f"{fmt}_upload_{up or 'full'}_stride{st}"
+                calls = []
+                for _ in range(RALLY_CALLS):
+                    t = time.time()
+                    o = pipe.run_rally(x, RALLY_FPS, table_stride=st, pixel_format=fmt,
+                                       upload_res=up)
+                    calls.append(RALLY_FRAMES / (time.time() - t))
+                rates[key] = {"median": statistics.median(calls), "range": [min(calls),
+                                                                            max(calls)],
+                              "calls": calls}
+                shapes[key] = result_shapes(o)
+                log("rally", config=key, frames_per_s=f"{rates[key]['median']:.3f}",
+                    frames_per_s_range=f"{min(calls):.3f}-{max(calls):.3f}")
+    for key, sh in shapes.items():
+        if sh != shapes[key.replace("i420", "rgb")]:
+            raise AssertionError(f"rgb and i420 rallies differ in shape: {shapes}")
+
+    # the host downscale alone, on the host's clock
+    target = (max(d.resolution[0] for d in pipe._detectors()),
+              max(d.resolution[1] for d in pipe._detectors()))
+    downscale_ms = {}
+    for fmt, x in inputs.items():
+        t = time.time()
+        host_downscale(x, target, fmt)
+        downscale_ms[fmt] = 1e3 * (time.time() - t) / RALLY_FRAMES
+    # what the downscale would cost if it overlapped nothing: its host time added to a
+    # rally that uploads full frames, beside the measured rate of upload_res "model"
+    serial = {fmt: 1e3 / (downscale_ms[fmt] + 1e3 / rates[f"{fmt}_upload_full_stride1"]["median"])
+              for fmt in inputs}
+    log("rally", host_downscale_ms_per_frame=json.dumps({k: round(v, 3) for k, v in
+                                                         downscale_ms.items()}),
+        to=f"{target[0]}x{target[1]}",
+        no_overlap_frames_per_s=json.dumps({k: round(v, 3) for k, v in serial.items()}))
+
+    # rgb against i420: the same detectors on frames whose chroma went through 4:2:0
+    peaks_rgb = pipe._rally_peaks(frames)
+    peaks_i420 = pipe._rally_peaks(inputs["i420"], pixel_format="i420")
+    if [p.shape for p in peaks_rgb] != [p.shape for p in peaks_i420]:
+        raise AssertionError("rgb and i420 peaks differ in shape")
+    i420_px = max(float(np.abs(a[..., :2] - b[..., :2]).max())
+                  for a, b in zip(peaks_rgb, peaks_i420))
+
+    # the slab step against each detector's own predict on the same triplets and frames:
+    # 61 frames uploaded as given, so both resize on the card from 1920x1080
+    edge = frames[:RALLY_EDGE_FRAMES]
+    T = len(edge)
+    slab = pipe._rally_peaks(edge, upload_res=None)
+    triples = [(edge[max(t - 1, 0)], edge[t], edge[min(t + 1, T - 1)]) for t in range(T)]
+    refs = [(hub.ball_detection("segformerpp_b2", device=DEVICE, chunk=chunk), triples),
+            (hub.ball_detection("wasb", device=DEVICE, chunk=chunk), triples),
+            (hub.table_detection("segformerpp_b2", device=DEVICE, chunk=chunk), list(edge)),
+            (hub.table_detection("hrnet", device=DEVICE, chunk=chunk), list(edge))]
+    slab_px = {}
+    for (det, items), got in zip(refs, slab):
+        want = det.predict(items)[0]
+        name = f"{det.model_name}_{det.task}"
+        slab_px[name] = float(np.abs(got[..., :2] - want[..., :2]).max())
+        if got.shape != want.shape or not np.array_equal(got[..., 2], want[..., 2]) \
+                or not slab_px[name] <= SLAB_TOL_PX:
+            raise AssertionError(f"{name}: the slab step's peaks differ from predict's: "
+                                 f"{slab_px[name]} px")
+    del refs
+
+    # i420 -> RGB on the card against the CPU, piece by piece
+    diff_values, diff_max = 0, 0
+    for s in range(0, RALLY_FRAMES, chunk):
+        x = torch.from_numpy(inputs["i420"][s:s + chunk])
+        d = (i420_to_rgb(x.to(DEVICE), 1080, 1920).cpu().int() - i420_to_rgb(x, 1080, 1920).int())
+        diff_values += int((d != 0).sum())
+        diff_max = max(diff_max, int(d.abs().max()))
+    if diff_max > 1:
+        raise AssertionError(f"i420_to_rgb on the card differs from the CPU by {diff_max}")
+    log("rally", slab_vs_predict_px=json.dumps(slab_px), rgb_vs_i420_max_px=f"{i420_px:.4g}",
+        i420_to_rgb_differing_values=diff_values, i420_to_rgb_max_diff=diff_max)
+
+    # the uplifting tail on the card: the ball aux is the ball main, so every interior
+    # frame passes the filter; the same inputs through the CPU f32 model
+    tail = copy.copy(pipe)
+    tail.ball_detector_aux = tail.ball_detector
+    out_t = tail.run_rally(frames, RALLY_FPS)
+    if len(out_t["valid_idx"]) != RALLY_FRAMES - 2 or out_t["spin"] is None:
+        raise AssertionError(f"the tail rally kept {len(out_t['valid_idx'])} frames")
+    cpu_model = UpliftingModel({k: v.cpu() for k, v in
+                                pipe.uplifting_model.model.state_dict().items()}, device="cpu")
+    b, t, tt, m = filters.uplifting_inputs(out_t["ball"], out_t["table"], out_t["times"],
+                                           WIDTH, HEIGHT)
+    tail_err = uplift_check(torch, cpu_model, (b, t, m, tt), (out_t["spin"], out_t["pos3d"]),
+                            "the rally's uplifting tail")
+    log("rally", tail_kept=len(out_t["valid_idx"]), tail_pos3d=list(out_t["pos3d"].shape),
+        tail_err=json.dumps(tail_err), tol=UPLIFT_RTOL)
+
+    res = dict(frames=RALLY_FRAMES, fps_video=RALLY_FPS, chunk=chunk, launches=launches,
+               launches_table_stride_16=launches_strided, frames_per_s=rates,
+               host_downscale_ms_per_frame=downscale_ms, downscale_to=list(target),
+               no_overlap_frames_per_s=serial,
+               slab_vs_predict_px=slab_px, rgb_vs_i420_max_px=i420_px,
+               i420_to_rgb_differing_values=diff_values, tail_err=tail_err,
+               result_shapes=shapes)
+    if profile:
+        res["profile"] = profile_calls(torch, lambda: pipe.run_rally(frames[:chunk], RALLY_FPS),
+                                       f"one warm piece of {chunk} frames through run_rally "
+                                       "(rgb, upload_res model)")
+    return res
+
+
+def run_uplifting(torch):
+    import numpy as np
+
+    from upliftingtabletennis_torch import hub
+    from upliftingtabletennis_torch.pipeline import filters
+    from upliftingtabletennis_torch.pipeline.interface import HEIGHT, WIDTH, UpliftingModel
+
+    model = hub.uplifting(device=DEVICE)
+    cpu = UpliftingModel({k: v.cpu() for k, v in model.model.state_dict().items()},
+                         device="cpu")
+    rng = np.random.default_rng(0)
+    table = np.concatenate([rng.uniform(0, [WIDTH, HEIGHT], (13, 2)),
+                            rng.uniform(0, 1, (13, 1)) > 0.2], -1)
+    res = {}
+    for T in UPLIFT_LENGTHS:
+        ball = rng.uniform(0, [WIDTH, HEIGHT], (T, 2))
+        b, t, tt, m = filters.uplifting_inputs(ball, table, np.arange(T) / RALLY_FPS, WIDTH,
+                                               HEIGHT)
+        got = model.predict_without_normalization(b, t, m, tt)
+        err = uplift_check(torch, cpu, (b, t, m, tt), got, f"uplifting at T = {T}")
+        ms = {}
+        for name, mdl in (("card", model), ("cpu", cpu)):
+            calls = []
+            for _ in range(20):  # each call returns numpy: it waits for the card
+                t0 = time.perf_counter()
+                mdl.predict_without_normalization(b, t, m, tt)
+                calls.append(1e3 * (time.perf_counter() - t0))
+            ms[name] = statistics.median(calls[3:])
+        res[f"T{T}"] = {"err": err, "pos3d_shape": list(got[1].shape), "ms": ms["card"],
+                        "cpu_ms": ms["cpu"]}
+        log("uplifting", T=T, valid=int(m.sum()), err=json.dumps(err),
+            ms_per_call=f"{ms['card']:.3f}", cpu_ms_per_call=f"{ms['cpu']:.3f}")
+        if got[1].shape != (min(T, filters.SEQUENCE_LEN), 3):
+            raise AssertionError(f"uplifting at T = {T}: pos3d of shape {got[1].shape}")
+    return res
+
+
+def calib_keypoints():
+    """(keypoints (13, 3), the noise-free projections (13, 2)) of a broadcast camera at
+    CALIB_RES: 1 px noise, one gross outlier."""
+    import numpy as np
+    import torch
+
+    from upliftingtabletennis_torch.core.geometry import TABLE_POINTS, get_Mext, world2img
+
+    rng = np.random.default_rng(7)
+    c = np.array([1.2, 9.5, 4.0])
+    f = np.array([0.1, -0.1, 0.76]) - c
+    f = f / np.linalg.norm(f)
+    r = np.cross(f, [0.0, 0.0, 1.0])
+    r = r / np.linalg.norm(r)
+    Mext = get_Mext(*(torch.from_numpy(v) for v in (c, f, r)))
+    Mint = torch.tensor([[2000.0, 0, CALIB_RES[0] // 2], [0, 2100.0, CALIB_RES[1] // 2],
+                         [0, 0, 1.0]], dtype=torch.float64)
+    gt = world2img(torch.from_numpy(TABLE_POINTS).double(), Mext, Mint).numpy()
+    pts = gt + rng.normal(0, CALIB_NOISE_PX, gt.shape)
+    k, shift = CALIB_OUTLIER
+    pts[k] += shift
+    return np.concatenate([pts, np.ones((13, 1))], -1), gt
+
+
+def run_calib(torch, pipe):
+    import numpy as np
+
+    from upliftingtabletennis_torch.core.geometry import TABLE_POINTS
+    from upliftingtabletennis_torch.pipeline.interface import TableDetector
+
+    kp, gt = calib_keypoints()
+    if pipe._last_frame_res != CALIB_RES:
+        raise AssertionError(f"the pipeline's frame is {pipe._last_frame_res}")
+    k_out = CALIB_OUTLIER[0]
+    res = {}
+    for where, fn, calls in (
+            ("card", lambda: pipe.calibrate_camera(kp), CALIB_CALLS),
+            ("cpu", lambda: TableDetector.calibrate_camera(kp, CALIB_RES, device="cpu"), 1)):
+        cam = fn()  # warm-up
+        times = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            cam = fn()
+            times.append(1e3 * (time.perf_counter() - t))
+        Mint, Mext, n = cam
+        pix = pipe.reproject(TABLE_POINTS, Mint, Mext, device=DEVICE)  # on the card
+        err = np.linalg.norm(pix - kp[:, :2], axis=-1)
+        err_gt = np.linalg.norm(pix - gt, axis=-1)
+        res[where] = dict(inliers=n, mean_px=float(np.delete(err, k_out).mean()),
+                          outlier_px=float(err[k_out]), mean_px_vs_truth=float(err_gt.mean()),
+                          fx=float(Mint[0, 0]), fy=float(Mint[1, 1]),
+                          ms=statistics.median(times), Mint=Mint.tolist(), Mext=Mext.tolist())
+        log("calib", on=where, inliers=n, mean_px=f"{res[where]['mean_px']:.3f}",
+            outlier_px=f"{err[k_out]:.1f}", mean_px_vs_truth=f"{err_gt.mean():.3f}",
+            fx=f"{Mint[0, 0]:.1f}", fy=f"{Mint[1, 1]:.1f}",
+            ms_per_call=f"{res[where]['ms']:.1f}")
+        if not (6 <= n <= 12 and res[where]["mean_px"] < CALIB_MEAN_PX
+                and err[k_out] > CALIB_OUTLIER_PX):
+            raise AssertionError(f"calibration on the {where}: {res[where]}")
+    res["card_vs_cpu"] = {"Mint": float(np.abs(np.subtract(res["card"]["Mint"],
+                                                           res["cpu"]["Mint"])).max()),
+                          "Mext": float(np.abs(np.subtract(res["card"]["Mext"],
+                                                           res["cpu"]["Mext"])).max())}
+    log("calib", card_vs_cpu=json.dumps(res["card_vs_cpu"]))
+    return res
+
+
 def profile_calls(torch, fn, label, categories=None):
     """Device time by kernel over one warm call of `fn` (torch.profiler), the idle share,
     and the Python lines that make the host wait for the card."""
@@ -2289,7 +2624,16 @@ def main() -> int:
     k4_entries, k4_bwd_entries = run_k4(torch, F, Ops, gen)
     train_res = run_train(torch, Ops, frames, profile=opts.profile)
 
-    # 17. hygiene
+    torch.cuda.empty_cache()
+    from upliftingtabletennis_torch import hub
+
+    pipe = hub.full_pipeline(device=DEVICE)
+    rally_res = run_rally_phase(torch, Ops, pipe, profile=opts.profile)
+    uplifting_res = run_uplifting(torch)
+    calib_res = run_calib(torch, pipe)
+    del pipe
+
+    # 20. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -2373,6 +2717,9 @@ def main() -> int:
                     f"dx, dw and db of K2's recompute in each of the 16 blocks); library: "
                     f"aten.convolution_backward (dx, dw, db) in channels_last bf16"),
     ]
+    for entry in kernels:  # the rally's main path: K1, K2, K5a and K5b over 64 frames
+        if rally_res["launches"].get(entry["name"]):
+            entry["launches_rally"] = rally_res["launches"][entry["name"]]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:
@@ -2380,7 +2727,8 @@ def main() -> int:
                        "probe": probe_res, "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
                        "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
                        "vitpose": vit_res, "k4": k4_entries, "k4_backward": k4_bwd_entries,
-                       "train": train_res,
+                       "train": train_res, "rally": rally_res, "uplifting": uplifting_res,
+                       "calib": calib_res,
                        "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

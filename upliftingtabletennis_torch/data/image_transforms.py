@@ -1,6 +1,6 @@
-"""Detector input normalisation and the detector trainer's augmentation.
+"""Detector input normalisation, video-native ingest and the detector trainer's augmentation.
 
-Port of `upliftingtabletennis_tpu/data/image_transforms.py` (`:32-273`). The training
+Port of `upliftingtabletennis_tpu/data/image_transforms.py` (`:32-352`). The training
 augmentation is one composed affine warp per sample (flip, rotation about the centre,
 translation, crop and resize with pixel-centre scaling), one inverse bilinear warp,
 colour jitter (brightness, contrast, HSV saturation and hue) shared across the frames
@@ -15,13 +15,21 @@ correlations included: `tx` and `ty` come from one draw (the reference's `ks[4]`
 so do `ox` and `oy` (`ks[7]`).
 
 Images are float32 in [0, 255], NHWC with C = 3 * frames.
+
+Video-native ingest (`run_rally`): `i420_to_rgb` converts planar YUV 4:2:0 frames on
+the device; `rgb_to_i420` (numpy) builds them for tests and smoke runs; `host_downscale`
+resizes uint8 frames on the host before upload with the half-pixel bilinear of
+`ops/resize.py` (cv2's INTER_LINEAR convention, which the JAX function calls).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
 
 # ImageNet statistics (ref: data/image_transforms.py:32-33 of the JAX package)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -29,7 +37,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "normalize_image", "ImageAugmentConfig",
            "draw_affine_uniforms", "sample_affines", "transform_coords", "update_visibility",
-           "warp_images", "draw_jitter_uniforms", "color_jitter", "augment_detection_batch"]
+           "warp_images", "draw_jitter_uniforms", "color_jitter", "augment_detection_batch",
+           "i420_to_rgb", "rgb_to_i420", "host_downscale"]
 
 
 def normalize_image(images: torch.Tensor) -> torch.Tensor:
@@ -250,3 +259,77 @@ def augment_detection_batch(gen, images, coords, visibility, dst_wh: Tuple[int, 
     visibility = update_visibility(stages, coords, visibility)
     out = color_jitter(u_jit, out, cfg)
     return normalize_image(out), out_coords, visibility
+
+
+def i420_to_rgb(frames_i420: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Planar I420 (T, height * 3 // 2, width) uint8 -> RGB (T, height, width, 3) uint8, on
+    the tensor's device.
+
+    Layout: rows [0, H) the Y plane, the next H // 4 rows the U plane ((H/2, W/2) stored
+    W wide), the last H // 4 rows the V plane. Full-range BT.601, chroma upsampled by
+    repetition (nearest), rounded half to even and clipped to [0, 255], as the JAX
+    function computes; each product and sum is its own f32 operation, so no fused
+    multiply-add changes a rounding."""
+    H, W = height, width
+    T = frames_i420.shape[0]
+    y = frames_i420[:, :H].float()
+
+    def chroma(rows):
+        c = frames_i420[:, rows].reshape(T, H // 2, W // 2).float()
+        return c.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) - 128.0
+
+    u, v = chroma(slice(H, H + H // 4)), chroma(slice(H + H // 4, H + H // 2))
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    b = y + 1.772 * u
+    return torch.stack([r, g, b], dim=-1).round().clamp(0, 255).to(torch.uint8)
+
+
+def rgb_to_i420(frames_rgb: np.ndarray) -> np.ndarray:
+    """RGB uint8 (T, H, W, 3) -> planar I420 uint8 (T, H * 3 // 2, W), full-range BT.601,
+    chroma box-averaged 2x2 (numpy, on the host)."""
+    f = frames_rgb.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    T, H, W = y.shape
+    u2 = u.reshape(T, H // 2, 2, W // 2, 2).mean(axis=(2, 4))
+    v2 = v.reshape(T, H // 2, 2, W // 2, 2).mean(axis=(2, 4))
+    out = np.empty((T, H * 3 // 2, W), np.uint8)
+    out[:, :H] = np.clip(np.round(y), 0, 255)
+    out[:, H:H + H // 4] = np.clip(np.round(u2), 0, 255).reshape(T, H // 4, W)
+    out[:, H + H // 4:] = np.clip(np.round(v2), 0, 255).reshape(T, H // 4, W)
+    return out
+
+
+def _resize_u8(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(T, H, W, C) uint8 -> (T, h, w, C) uint8: half-pixel bilinear in f32, rounded."""
+    return resize_bilinear_down(planes, h, w).round_().clamp_(0, 255).to(torch.uint8)
+
+
+def host_downscale(frames: np.ndarray, dst_wh, pixel_format: str = "rgb") -> np.ndarray:
+    """Bilinear downscale of uint8 frames on the host to dst_wh = (width, height), before
+    upload: the detectors resize to their own input on the device anyway, so a frame
+    above the largest model resolution carries only extra host-to-device bytes.
+
+    "rgb": (T, H, W, 3). "i420": (T, H * 3 // 2, W) planar; the Y plane is resized at
+    full size and U, V at half, keeping the planar layout. Returns uint8 frames in the
+    same format. Within 1 grey level of cv2.resize(INTER_LINEAR), which rounds its
+    fixed-point weights."""
+    w, h = int(dst_wh[0]), int(dst_wh[1])
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    if pixel_format == "rgb":
+        return _resize_u8(x, h, w).numpy()
+    if pixel_format != "i420":
+        raise ValueError(f"unknown pixel_format {pixel_format!r}")
+    if h % 4 or w % 2:
+        raise ValueError(f"i420 target resolution must have h % 4 == 0, w % 2 == 0; got {(w, h)}")
+    T, H, W = x.shape[0], x.shape[1] * 2 // 3, x.shape[2]
+    out = torch.empty((T, h * 3 // 2, w), dtype=torch.uint8)
+    out[:, :h] = _resize_u8(x[:, :H, :, None], h, w)[..., 0]
+    for src, dst in ((slice(H, H + H // 4), slice(h, h + h // 4)),
+                     (slice(H + H // 4, H + H // 2), slice(h + h // 4, h + h // 2))):
+        plane = x[:, src].reshape(T, H // 2, W // 2, 1)
+        out[:, dst] = _resize_u8(plane, h // 2, w // 2).reshape(T, h // 4, w)
+    return out.numpy()

@@ -10,7 +10,9 @@ rally), so it stays host code:
   t / fps);
 * table: per keypoint, the frames where both models see it and agree within
   10 px; with 3 or more, DBSCAN(eps=10, min_samples=3) and the centroid of the
-  largest cluster, the mean when every point is noise; else invisible.
+  largest cluster, the mean when every point is noise; else invisible;
+* `uplifting_inputs`: normalise and pad the filtered detections to the uplifting
+  model's input (`SEQUENCE_LEN` = 50 steps).
 
 Clustering uses the JAX package's own numpy DBSCAN (`_density_labels`), never
 sklearn: the card's machine has none.
@@ -26,8 +28,10 @@ BALL_AGREEMENT_PX = 20.0
 TABLE_AGREEMENT_PX = 10.0
 VISIBLE = 1
 INVISIBLE = 0
+SEQUENCE_LEN = 50
 
-__all__ = ["filter_trajectory_ball", "filter_trajectory_table", "VISIBLE", "INVISIBLE"]
+__all__ = ["filter_trajectory_ball", "filter_trajectory_table", "uplifting_inputs", "VISIBLE",
+           "INVISIBLE", "SEQUENCE_LEN"]
 
 
 def filter_trajectory_ball(pred1: np.ndarray, pred2: np.ndarray, fps: float):
@@ -91,3 +95,22 @@ def filter_trajectory_table(pred1: np.ndarray, pred2: np.ndarray) -> np.ndarray:
         c = _dbscan_largest_cluster(pts, eps=TABLE_AGREEMENT_PX, min_samples=3)
         out[n] = (c[0], c[1], VISIBLE) if c is not None else (-1, -1, INVISIBLE)
     return out
+
+
+def uplifting_inputs(ball_coords, table_coords, times, width, height, seq_len=SEQUENCE_LEN):
+    """Pixel detections -> the uplifting model's inputs: coordinates divided by (width,
+    height), the first seq_len steps, zero-padded.
+
+    Returns (ball (1, L, 2), table (1, 13, 3), times (1, L), mask (1, L)), float32."""
+    ball = np.asarray(ball_coords, np.float32) / np.asarray([width, height], np.float32)
+    table = np.asarray(table_coords, np.float32).copy()
+    table[:, 0] /= width
+    table[:, 1] /= height
+    n = min(ball.shape[0], seq_len)
+    out_ball = np.zeros((1, seq_len, 2), np.float32)
+    out_times = np.zeros((1, seq_len), np.float32)
+    mask = np.zeros((1, seq_len), np.float32)
+    out_ball[0, :n] = ball[:n]
+    out_times[0, :n] = np.asarray(times, np.float32)[:n]
+    mask[0, :n] = 1.0
+    return out_ball, table[None], out_times, mask

@@ -1,2 +1,3 @@
 """Measurement tools of the port: the phase probes of K1 and K2 (`probe_attn_phases`,
-`probe_ffn_phases`), counterparts of the JAX package's `tools/probe_*_phases.py`."""
+`probe_ffn_phases`), counterparts of the JAX package's `tools/probe_*_phases.py`; the tile
+product's phases (`gemm_phases`)."""

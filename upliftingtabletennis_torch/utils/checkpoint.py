@@ -5,7 +5,8 @@ Counterpart of `upliftingtabletennis_tpu/utils/checkpoint.py` (`save_checkpoint`
 the state dict alone, which `BallDetector(..., checkpoint=path)` and
 `TableDetector(..., checkpoint=path)` load (`weights_only=True`), and `path + ".json"`
 holds `{"identifier", "additional_info"}` (the reference's checkpoint contract: the
-hyperparameters that rebuild the architecture).
+hyperparameters that rebuild the architecture). `load_model_from_checkpoint` rebuilds the
+uplifting model from them (`name`, `size`, `tabletoken_mode`, `time_rotation`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_model_from_checkpoint"]
 
 
 def _meta_path(path: str) -> str:
@@ -42,3 +43,17 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], str, Dict[str, 
     with open(_meta_path(path)) as f:
         meta = json.load(f)
     return state, meta.get("identifier", ""), meta.get("additional_info", {})
+
+
+def load_model_from_checkpoint(path: str):
+    """(model, state_dict, identifier, info) of an uplifting checkpoint: the model built
+    from `info` and loaded with the state dict, in eval mode on the CPU."""
+    from upliftingtabletennis_torch.models.uplifting import get_uplifting_model
+
+    state, identifier, info = load_checkpoint(path)
+    model = get_uplifting_model(name=info.get("name", "connectstage"),
+                                size=info.get("size", "large"),
+                                mode=info.get("tabletoken_mode", "dynamic"),
+                                time_rotation=info.get("time_rotation", "new"))
+    model.load_state_dict(state)
+    return model.eval(), state, identifier, info

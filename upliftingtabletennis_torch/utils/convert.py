@@ -11,6 +11,7 @@ the flax tree, so the map is a path walk with these transforms:
                                  (in, out, kh, kw), with no spatial flip
     LayerNorm/BatchNorm scale -> weight
     pos_embed (ViTPose)       -> pos_embed, as it is
+    cls_token (uplifting)     -> cls_token, as it is
     batch_stats mean / var    -> running_mean / running_var (+ num_batches_tracked)
 
 Reading the committed Orbax checkpoints needs the JAX package, so the
@@ -46,7 +47,7 @@ def flax_to_torch(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = "weight"
         elif name == "scale":
             name = "weight"
-        elif name not in ("bias", "pos_embed"):
+        elif name not in ("bias", "pos_embed", "cls_token"):
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
         sd[".".join(mod + [name])] = torch.from_numpy(np.array(a, dtype=np.float32))
     for path, leaf in _walk(variables.get("batch_stats", {})):
