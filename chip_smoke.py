@@ -136,7 +136,30 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             the outlier rejected, the mean reprojection error (`reproject` on the card) of
             the others under 3 px (tests/test_calibration.py's bounds), on the card and on
             the CPU; ms per call;
-20. hygiene  neither JAX nor the JAX package was imported.
+20. physics S1 (the integrator, `ops/csrc/physics.cu`) against its plain version
+            (`core/physics.py`) on the card: forward mode on 8,192 "intermediate" candidates
+            of each direction over 500 frames, tangent mode on fit_physics's 32 starts over
+            502 frames; per trajectory |dr| <= 1e-4 m, |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s
+            and dr/dq within 1e-3 of its largest, all but S1_KNIFE_EDGES; planted faults (the
+            net left out of the contacts, one tangent direction zeroed) that must fail those
+            limits; ms per call (and back to back), the plain version's time, the bound (bytes,
+            operations, and the serial chain worked out from the code at the latencies of
+            physics.cu's op_latency_kernel); the kernel on one trajectory, beside it;
+21. datagen `generate_dataset("intermediate")` at batch 8,192 until 1,024 accepted, cold and
+            warm: trajectories/s, the acceptance rate, 1 S1 launch per batch; the first
+            batch's candidates on the CPU's plain path against the card's (accept mask and
+            bounce counts on at least 99.5% of them);
+22. fit     `TableTennisPipeline.fit_physics` at its defaults (32 starts, 250 Adam, 12 LM
+            steps: 262 tangent and 14 forward S1 launches per call) on tests/test_fitting.py's
+            topspin and backspin states observed through the simulation camera at 50 fps over
+            the JAX tests' 0.46 s and over 1 s, and on two accepted datagen trajectories over
+            1 s, each cold and warm: seconds per fit, reproj_px, basin_spread_m, the mean 3D
+            error against the truth and the spin class (gates on the two test states over
+            0.46 s: under 10 cm and the right class); one warm start (`init=`) from the
+            topspin truth perturbed by 2 cm; the two states over 1 s from JAX's own draws
+            (tests/fit_witness_1s.npz) beside the JAX fit's outcome on them, gated where
+            the JAX fit recovers the state;
+23. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -198,9 +221,10 @@ K1_SHARP_K_STD = 3.0
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
+SM_CLOCK_HZ = 1.98e9  # boost clock
 # 16 MUFU results per clock per SM on compute capability 9.0 (CUDA C++ Programming
-# Guide, arithmetic instruction throughput) x 132 SMs x 1.98 GHz boost clock
-SFU_PER_S = 16 * 132 * 1.98e9
+# Guide, arithmetic instruction throughput) x 132 SMs x the boost clock
+SFU_PER_S = 16 * 132 * SM_CLOCK_HZ
 
 # |kernel - plain| <= ATOL + RTOL * |plain|: bf16 output rounding alone is up to half
 # an ulp (0.0156 at |x| in [4, 8)); bf16 rounding of LN(x), q or the hidden tensor and
@@ -313,6 +337,42 @@ UPLIFT_LENGTHS = (50, 12)  # a full sequence and one padded to SEQUENCE_LEN
 # the outlier beyond 50 px
 CALIB_RES, CALIB_NOISE_PX, CALIB_OUTLIER = (1920, 1080), 1.0, (3, (300.0, -200.0))
 CALIB_MEAN_PX, CALIB_OUTLIER_PX, CALIB_CALLS = 3.0, 50.0, 5
+
+# S1, the integrator (ops/csrc/physics.cu): forward mode at the datagen batch (8,192
+# "intermediate" candidates, 500 frames, each direction), tangent mode at the fit's shape
+# (fit_physics's 32 starts on a 1 s track: 502 frames)
+S1_BATCH, S1_FRAMES = 8192, 500
+FIT_STARTS, FIT_FRAMES = 32, 502
+# the kernel against its plain version, per trajectory over the whole run: |dr| <= 1e-4 m,
+# |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s, and dr/dq within 1e-3 of the trajectory's largest
+# |dr/dq|. The two run the same float32 operations in the same order (bit-equal where
+# PyTorch's elementwise operations round correctly: 0 differing trajectories so far); a
+# contact that they saw one step apart on a knife-edge crossing would move a trajectory by
+# far more than the limit, and at most this many trajectories per call may do so
+S1_ATOL = (1e-4, 1e-3, 1e-2)
+S1_JAC_RTOL = 1e-3
+S1_KNIFE_EDGES = {"forward": 8, "tangent": 1}  # of 8,192 and of 32 trajectories
+S1_TIMED_CALLS = 10
+S1_LAT_CHAIN = 4096  # dependent operations per kind in physics.cu's op_latency_kernel
+S1_FAULT_DIRECTION = 4  # the planted tangent fault zeroes d r / d v0_y
+# the fit: fit_physics at its defaults (32 starts, 250 Adam and 12 LM steps), each fit
+# cold and warm, on tests/test_fitting.py's topspin and backspin states observed through
+# the simulation camera at 50 fps, over the JAX tests' window (24 detections, 0.46 s) and
+# over 1 s (50 detections), and on two accepted datagen trajectories over 1 s. Gates, as
+# the JAX tests set them (on their window): mean 3D error under 10 cm and the spin class,
+# on the two test states and the warm start. The 1 s tracks are reported, and held
+# against the JAX fit from JAX's own draws (`fit_witness`): from most keys the JAX fit
+# itself misses the 1 s tracks, by 34 cm to meters
+FIT_STATES = {"topspin": ((-1.1, 0.25, 1.05), (7.0, -0.6, 0.8), (5.0, 90.0, -15.0)),
+              "backspin": ((-1.0, -0.2, 1.2), (7.0, 0.4, -0.6), (-10.0, -100.0, 15.0))}
+FIT_SPIN_CLASS = {"topspin": 1.0, "backspin": 2.0}
+FIT_OBS, FIT_OBS_LONG, FIT_STRIDE = 24, 50, 10  # detections; 500 fps frames between two
+FIT_GATE_CM = 10.0
+FIT_LAUNCHES = {"simulate_tangent": 250 + 12, "simulate": 1 + 12 + 1}  # per fit_physics call
+# datagen: generate_dataset("intermediate") at its production batch until this many
+# accepted; the first batch again on the CPU's plain path must agree with the card on the
+# accept mask and the bounce counts of at least this share of its candidates
+DATAGEN_ACCEPTED, DATAGEN_BATCH, DATAGEN_CPU_AGREEMENT = 1024, 8192, 0.995
 
 
 def sass_counts(_build, sources, ops=("HGMMA", "UTMALDG", "UTMASTG", "HMMA")):
@@ -2470,6 +2530,471 @@ def run_calib(torch, pipe):
     return res
 
 
+def s1_errors(torch, got, want):
+    """Per-trajectory max |got - want| over frames and components: (N,) for each of the
+    BallStates' fields, trajectories along dim 1."""
+    return [(g - w).abs().transpose(0, 1).reshape(g.shape[1], -1).amax(1)
+            for g, w in zip(got, want)]
+
+
+def s1_over(torch, errs, tols):
+    """(N,) bool: trajectories over any of the limits."""
+    over = torch.zeros_like(errs[0], dtype=torch.bool)
+    for e, t in zip(errs, tols):
+        over |= ~(e <= t)
+    return over
+
+
+def s1_op_latency(torch):
+    """SM cycles of one dependent add, multiply, divide and square root as S1 rounds them
+    (physics.cu's op_latency_kernel: S1_LAT_CHAIN of each in one thread, timed by
+    %clock64), the least of 3 calls."""
+    import ctypes
+
+    from upliftingtabletennis_torch.ops import _build
+
+    lib = _build.library("physics.cu")
+    fn = lib.uttk_physics_op_latency
+    fn.argtypes = [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sink = torch.zeros(4, dtype=torch.float32, device=DEVICE)
+    cycles = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+    best = None
+    for _ in range(3):
+        status = _build.call_on_device(cycles, lambda stream: fn(
+            1.0, 1.0000001, S1_LAT_CHAIN, sink.data_ptr(), cycles.data_ptr(), stream))
+        _build.check(lib, status, "S1 op latency")
+        got = cycles.tolist()
+        best = got if best is None else [min(a, b) for a, b in zip(best, got)]
+    return {k: c / S1_LAT_CHAIN for k, c in zip(("add", "mul", "div", "sqrt"), best)}
+
+
+def s1_chain(lat, mode, steps=64):
+    """S1's serial chain and float operations per step, worked out from the code: the
+    plain version's flight step (core/physics.py `_implicit_velocity_update`, then
+    r' = r + dt v: the arithmetic of physics.cu's `step` outside a contact, in the same
+    order) run on scalars that carry only the cycle at which they are ready. An add,
+    multiply, divide or square root is ready its latency `lat` after the later of its
+    operands and counts one operation; a compare, a select or a sign flip costs nothing,
+    and the contact tests are left out, so both counts are floors. The tangent mode runs
+    the plain version's dual numbers over such scalars: one thread's value and tangent.
+    Returns (cycles per step, float operations per step and thread): the growth of the
+    latest ready time over the second half of `steps` steps, and one step's count."""
+    import types
+
+    import torch as _torch
+
+    from upliftingtabletennis_torch.core import physics as P
+
+    count = [0]
+
+    class Chain:
+        __slots__ = ("c",)
+
+        def __init__(self, c=0.0):
+            self.c = c
+
+        def _op(self, o, kind):
+            if isinstance(o, P.Dual):
+                return NotImplemented
+            count[0] += 1
+            return Chain(max(self.c, o.c if isinstance(o, Chain) else 0.0) + lat[kind])
+
+        def __add__(self, o):
+            return self._op(o, "add")
+
+        __radd__ = __sub__ = __rsub__ = __add__
+
+        def __mul__(self, o):
+            return self._op(o, "mul")
+
+        __rmul__ = __mul__
+
+        def __truediv__(self, o):
+            return self._op(o, "div")
+
+        def __neg__(self):
+            return self
+
+        def __gt__(self, o):
+            return Chain(max(self.c, o.c if isinstance(o, Chain) else 0.0))
+
+        __lt__ = __gt__
+
+        def expand_as(self, other):
+            return self
+
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            ready = max((a.c for a in args if isinstance(a, Chain)), default=0.0)
+            if func is _torch.sqrt:
+                count[0] += 1
+                return Chain(ready + lat["sqrt"])
+            if func in (_torch.maximum, _torch.minimum, _torch.where, _torch.abs):
+                return Chain(ready)
+            if func is _torch.zeros_like:
+                return Chain()
+            return NotImplemented
+
+    def scalar():
+        return Chain() if mode == "forward" else P.Dual(Chain(), Chain())
+
+    def ready(state):
+        return max(max(x.v.c, x.t.c) if isinstance(x, P.Dual) else x.c
+                   for part in state for x in part)
+
+    k = types.SimpleNamespace(**{name: Chain() for name in P.KERNEL_CONSTANTS})
+    r, v, w = ((scalar(), scalar(), scalar()) for _ in range(3))
+    for i in range(steps):
+        count[0] = 0
+        v, w = P._implicit_velocity_update(v, w, k)
+        r = tuple(ri + k.DT * vi for ri, vi in zip(r, v))
+        if i == steps // 2 - 1:
+            mid = ready((r, v, w))
+    return (ready((r, v, w)) - mid) / (steps - steps // 2), count[0]
+
+
+def s1_bound(mode, n, steps, out_bytes, in_bytes, lat):
+    """S1's bound: the largest of its bytes over the HBM rate, its float operations over
+    the f32 rate and its serial chain (`s1_chain`) at the boost clock. `bound_by` says
+    bytes or operations, as the kernels line allows; `bound_term` names the term that
+    won (the serial chain is one of operations)."""
+    cycles, flops = s1_chain(lat, mode)
+    threads = n * (1 if mode == "forward" else 9)
+    terms = {"bytes": 1e3 * (out_bytes + in_bytes) / HBM_BYTES_PER_S,
+             "operations": 1e3 * threads * steps * flops / FP32_FLOPS,
+             "serial_chain": 1e3 * steps * cycles / SM_CLOCK_HZ}
+    term = max(terms, key=terms.get)
+    return {"bytes_ms": terms["bytes"], "ops_ms": terms["operations"],
+            "chain_ms": terms["serial_chain"], "chain_cycles_per_step": cycles,
+            "flops_per_step": flops, "op_latency_cycles": lat,
+            "bound_ms": terms[term], "bound_term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations"}
+
+
+def no_net_table(P, dtype, device, dt):
+    """The plain version's constants with the net out of reach (|y| < -1 never holds):
+    the planted fault that drops the net from the contact selection."""
+    import types
+
+    tab = vars(P._table(dtype, device, dt)).copy()
+    tab["NET_Y_R"] = tab["NET_Y_R"] * 0 - 1.0
+    return types.SimpleNamespace(**tab)
+
+
+def fit_track(torch, state, n_obs=FIT_OBS, stride=FIT_STRIDE):
+    """A flight observed through the simulation camera: (obs (T, 2), times (T,), truth
+    (T, 3), Mint, Mext), numpy float32; state (r, v, w) of 3-tuples, simulated by S1."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core.geometry import world2img
+    from upliftingtabletennis_torch.core.physics import BallState
+    from upliftingtabletennis_torch.data.datagen import sim_camera
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    s0 = BallState(*(torch.tensor([x], dtype=torch.float32, device=DEVICE) for x in state))
+    r = S1.simulate(s0, (n_obs - 1) * stride + 1).r[::stride, 0]
+    Mext, Mint = sim_camera(DEVICE)
+    obs = world2img(r, Mext, Mint)
+    times = np.arange(n_obs, dtype=np.float32) * stride / 500.0
+    return (obs.cpu().numpy(), times, r.cpu().numpy(), Mint.cpu().numpy(), Mext.cpu().numpy())
+
+
+def run_physics(torch):
+    """S1 against its plain version on the card, at the datagen and the fit shapes, with
+    the planted faults; ms per call, the bound and the plain version's time."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core import fitting as FIT
+    from upliftingtabletennis_torch.core import physics as P
+    from upliftingtabletennis_torch.data import datagen as DG
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    lat = s1_op_latency(torch)
+    log("physics", op_latency_cycles=json.dumps(lat))
+    res = {"forward": [], "op_latency_cycles": lat}
+    for direction in DG.DIRECTIONS:
+        s0 = DG.sample_initial_conditions(S1_BATCH, "intermediate", direction, gen, DEVICE)
+        got = S1.simulate(s0, S1_FRAMES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = P.simulate(s0, S1_FRAMES)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t)
+        errs = s1_errors(torch, got, want)
+        over = int(s1_over(torch, errs, S1_ATOL).sum())
+        differ = int(torch.stack([e > 0 for e in errs]).any(0).sum())
+        entry = {"direction": direction, "n": S1_BATCH, "frames": S1_FRAMES,
+                 "over_limit": over, "bitwise_differing": differ,
+                 "max_abs_err": {k: float(e.max()) for k, e in zip("rvw", errs)},
+                 "plain_ms": plain_ms}
+        if over > S1_KNIFE_EDGES["forward"]:
+            raise AssertionError(f"S1 forward ({direction}): {over} trajectories over the "
+                                 f"limits {S1_ATOL}: {entry}")
+        if direction == DG.DIRECTIONS[0]:  # the planted fault: the net left out
+            no_net = no_net_table(P, s0.r.dtype, s0.r.device, P.DT)
+            with patched(P, _table=lambda *_: no_net):
+                fault = P.simulate(s0, S1_FRAMES)
+            caught = int(s1_over(torch, s1_errors(torch, got, fault), S1_ATOL).sum())
+            entry["fault_no_net_over_limit"] = caught
+            if caught <= S1_KNIFE_EDGES["forward"]:
+                raise AssertionError(f"S1 forward: the planted fault (no net) passes the "
+                                     f"limits ({caught} trajectories over them)")
+        steps = 1 + (S1_FRAMES - 1) * 2
+        entry["ms"] = time_ms(torch, lambda: S1.simulate(s0, S1_FRAMES), iters=S1_TIMED_CALLS)
+        entry["ms_pipelined"] = pipelined_ms(torch, lambda: S1.simulate(s0, S1_FRAMES),
+                                             reps=S1_TIMED_CALLS)
+        one = P.BallState(*(x[:1].contiguous() for x in s0))
+        entry["one_trajectory_ms"] = time_ms(torch, lambda: S1.simulate(one, S1_FRAMES),
+                                             iters=S1_TIMED_CALLS)
+        entry.update(s1_bound("forward", S1_BATCH, steps, 9 * S1_FRAMES * S1_BATCH * 4,
+                              9 * S1_BATCH * 4, lat))
+        res["forward"].append(entry)
+        log("physics", mode="forward", **{k: (f"{v:.4f}" if isinstance(v, float) else
+                                              json.dumps(v)) for k, v in entry.items()})
+        del got, want
+
+    # tangent mode: the fit's 32 starts on the topspin track, 502 frames
+    obs, times, _, Mint, Mext = fit_track(torch, FIT_STATES["topspin"], FIT_OBS_LONG)
+    dev = torch.device(DEVICE)
+    o, t_, m, Ki, Ke = (torch.as_tensor(a, device=dev) for a in
+                        (obs, times, np.ones(len(obs), np.float32), Mint, Mext))
+    st = FIT.default_inits(o, t_, m, Ki, Ke, FIT_STARTS,
+                           torch.Generator(device=dev).manual_seed(0))
+    args = (FIT_FRAMES, 2, P.DT, FIT.V_SCALE, FIT.W_SCALE)
+    r, jac = S1.simulate_tangent(st, *args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rp, jp = P.simulate_tangent(st, *args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+
+    def tangent_over(jac_got):
+        r_err = (r - rp).abs().amax(dim=(0, 2))
+        j_err = (jac_got - jp).abs().amax(dim=(0, 2, 3))
+        j_lim = S1_JAC_RTOL * jp.abs().amax(dim=(0, 2, 3))
+        return (~(r_err <= S1_ATOL[0])) | (~(j_err <= j_lim)), r_err, j_err / j_lim * S1_JAC_RTOL
+
+    over, r_err, j_rel = tangent_over(jac)
+    faulty = jac.clone()
+    faulty[..., S1_FAULT_DIRECTION] = 0
+    caught = int(tangent_over(faulty)[0].sum())
+    entry = {"n": FIT_STARTS, "frames": FIT_FRAMES, "over_limit": int(over.sum()),
+             "bitwise_differing": int(((r != rp).any(0).any(-1)
+                                       | (jac != jp).any(0).any(-1).any(-1)).sum()),
+             "max_abs_err": {"r": float(r_err.max()), "jac": float((jac - jp).abs().max())},
+             "max_rel_jac_err": float(j_rel.max()), "fault_direction_zeroed_over_limit": caught,
+             "plain_ms": plain_ms}
+    if entry["over_limit"] > S1_KNIFE_EDGES["tangent"]:
+        raise AssertionError(f"S1 tangent: {entry}")
+    if caught <= S1_KNIFE_EDGES["tangent"]:
+        raise AssertionError(f"S1 tangent: the planted fault (direction {S1_FAULT_DIRECTION} "
+                             f"zeroed) passes the limits ({caught} over them)")
+    entry["ms"] = time_ms(torch, lambda: S1.simulate_tangent(st, *args), iters=S1_TIMED_CALLS)
+    entry["ms_pipelined"] = pipelined_ms(torch, lambda: S1.simulate_tangent(st, *args),
+                                         reps=S1_TIMED_CALLS)
+    one = P.BallState(*(x[:1].contiguous() for x in st))
+    entry["one_trajectory_ms"] = time_ms(torch, lambda: S1.simulate_tangent(one, *args),
+                                         iters=S1_TIMED_CALLS)
+    entry.update(s1_bound("tangent", FIT_STARTS, 1 + (FIT_FRAMES - 1) * 2,
+                          40 * FIT_FRAMES * FIT_STARTS * 3, 9 * FIT_STARTS * 4, lat))
+    res["tangent"] = entry
+    log("physics", mode="tangent", **{k: (f"{v:.4f}" if isinstance(v, float) else json.dumps(v))
+                                      for k, v in entry.items()})
+    return res
+
+
+def run_datagen(torch, profile=False):
+    """generate_dataset("intermediate") at the production batch until DATAGEN_ACCEPTED
+    accepted (the main path of datagen, launches counted), twice; then the first batch's
+    candidates again on the CPU's plain path."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core.physics import BallState
+    from upliftingtabletennis_torch.data import datagen as DG
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    res = {"calls": []}
+    for call in ("cold", "warm"):
+        S1.simulate.launches = S1.simulate_tangent.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = DG.generate_dataset(DATAGEN_ACCEPTED, "intermediate", "left_to_right",
+                                  batch=DATAGEN_BATCH,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(0),
+                                  device=DEVICE)
+        seconds = time.perf_counter() - t
+        launches = S1.simulate.launches
+        batches = out["candidates"] // DATAGEN_BATCH
+        n = len(out["positions"])
+        entry = {"call": call, "accepted": n, "batches": batches, "seconds": seconds,
+                 "trajectories_per_s": n / seconds,
+                 "acceptance": out["accepted_total"] / out["candidates"],
+                 "launches": launches, "launches_per_batch": launches / batches,
+                 "tangent_launches": S1.simulate_tangent.launches}
+        res["calls"].append(entry)
+        log("datagen", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                          for k, v in entry.items()})
+        if n != DATAGEN_ACCEPTED or launches != batches or S1.simulate_tangent.launches:
+            raise AssertionError(f"datagen: {entry}")
+        if not (np.isfinite(out["positions"]).all() and out["frame_valid"].sum(1).min()
+                >= DG.MIN_TRAJ_LEN_FRAMES):
+            raise AssertionError("datagen: non-finite or short accepted trajectories")
+    res["launches"] = res["calls"][-1]["launches"]
+    if profile:
+        res["profile"] = profile_calls(
+            torch, lambda: DG.generate_dataset(DATAGEN_ACCEPTED, batch=DATAGEN_BATCH,
+                                               generator=torch.Generator(device=DEVICE)
+                                               .manual_seed(0), device=DEVICE),
+            f"one warm generate_dataset call ({DATAGEN_ACCEPTED} accepted, batch "
+            f"{DATAGEN_BATCH})")
+    res["tracks"] = [tuple(out[k][i, 0] for k in ("positions", "velocities", "rotations"))
+                     for i in range(2)]
+    res["track_frames"] = [int(out["frame_valid"][i].sum()) for i in range(2)]
+
+    # the first batch's candidates on the card (S1) and on the CPU (the plain version)
+    s0 = DG.sample_initial_conditions(DATAGEN_BATCH, "intermediate", "left_to_right",
+                                      torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    card = DG.validate_candidates(s0, "intermediate", "left_to_right")
+    t = time.perf_counter()
+    cpu = DG.validate_candidates(BallState(*(x.cpu() for x in s0)), "intermediate",
+                                 "left_to_right")
+    cpu_s = time.perf_counter() - t
+    acc_agree = float((card["accept"].cpu() == cpu["accept"]).float().mean())
+    nb_agree = float((card["n_bounces"].cpu() == cpu["n_bounces"]).float().mean())
+    res["cpu_check"] = {"accept_agreement": acc_agree, "n_bounces_agreement": nb_agree,
+                        "accepted_card": int(card["accept"].sum()),
+                        "accepted_cpu": int(cpu["accept"].sum()), "cpu_seconds": cpu_s,
+                        "positions_max_abs_diff": float((card["positions"].cpu()
+                                                         - cpu["positions"]).abs().max())}
+    log("datagen", cpu_check=json.dumps(res["cpu_check"]))
+    if min(acc_agree, nb_agree) < DATAGEN_CPU_AGREEMENT:
+        raise AssertionError(f"datagen: the card and the CPU agree on too few candidates: "
+                             f"{res['cpu_check']}")
+    return res
+
+
+def run_fit(torch, pipe, datagen_tracks, profile=False):
+    """TableTennisPipeline.fit_physics at its defaults on the two test states and two
+    accepted datagen trajectories (each cold and warm), and one warm start; launches
+    counted per call."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core import fitting as FIT
+    from upliftingtabletennis_torch.core import geometry as G
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    cases = {name: (state, FIT_OBS) for name, state in FIT_STATES.items()}
+    cases.update({f"{name}_1s": (state, FIT_OBS_LONG) for name, state in FIT_STATES.items()})
+    for i, state in enumerate(datagen_tracks):
+        cases[f"datagen_{i}_1s"] = (tuple(tuple(float(c) for c in x) for x in state),
+                                    FIT_OBS_LONG)
+    res = {"cases": {}}
+
+    def fit(obs, times, Mint, Mext, **kw):
+        S1.simulate.launches = S1.simulate_tangent.launches = 0
+        t = time.perf_counter()
+        out = pipe.fit_physics(obs, times, Mint, Mext, **kw)
+        seconds = time.perf_counter() - t
+        launches = {"simulate": S1.simulate.launches,
+                    "simulate_tangent": S1.simulate_tangent.launches}
+        if launches != FIT_LAUNCHES:
+            raise AssertionError(f"fit_physics launched {launches}, expected {FIT_LAUNCHES}")
+        return out, seconds, launches
+
+    for name, (state, n_obs) in cases.items():
+        obs, times, truth, Mint, Mext = fit_track(torch, state, n_obs)
+        seconds = []
+        for _ in ("cold", "warm"):
+            (spin, pos, r), s, launches = fit(obs, times, Mint, Mext)
+            seconds.append(s)
+        err_cm = 100 * np.linalg.norm(pos - truth, axis=-1)
+        cls = float(FIT.spin_class_from_fit(r))
+        true_local = G.transform_rotation_axes(torch.tensor(state[2]), torch.from_numpy(truth))
+        entry = {"detections": n_obs,
+                 "n_frames": int(np.ceil((float(times[-1]) + 1e-3) / 0.25)) * 125 + 2,
+                 "seconds_cold": seconds[0], "seconds_warm": seconds[1],
+                 "mean_err_cm": float(err_cm.mean()), "max_err_cm": float(err_cm.max()),
+                 "reproj_px": float(r.reproj_px), "basin_spread_m": float(r.basin_spread_m),
+                 "spin_class": cls, "true_spin_class": 1.0 if true_local[1] > 0 else 2.0,
+                 "spin_local": [float(x) for x in spin], "launches": launches}
+        res["cases"][name] = entry
+        log("fit", case=name, **{k: (f"{v:.4f}" if isinstance(v, float) else json.dumps(v))
+                                 for k, v in entry.items()})
+        if name in FIT_SPIN_CLASS and not (entry["mean_err_cm"] < FIT_GATE_CM
+                                           and cls == FIT_SPIN_CLASS[name]):
+            raise AssertionError(f"fit_physics on {name}: {entry}")
+
+    # the warm start: seeded with the topspin truth, positions perturbed by 2 cm
+    obs, times, truth, Mint, Mext = fit_track(torch, FIT_STATES["topspin"])
+    spin_local = G.transform_rotation_axes(torch.tensor(FIT_STATES["topspin"][2]),
+                                           torch.from_numpy(truth)).numpy()
+    pos3d = truth + 0.02 * np.random.default_rng(0).normal(size=truth.shape).astype(np.float32)
+    (spin, pos, r), s, launches = fit(obs, times, Mint, Mext, init=(spin_local, pos3d))
+    err = float((100 * np.linalg.norm(pos - truth, axis=-1)).mean())
+    res["warm_start"] = {"seconds": s, "mean_err_cm": err, "reproj_px": float(r.reproj_px),
+                         "spin_sign_ok": bool(np.sign(spin[1]) == np.sign(spin_local[1]))}
+    log("fit", case="warm_start", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                                     for k, v in res["warm_start"].items()})
+    if not (err < FIT_GATE_CM and res["warm_start"]["spin_sign_ok"]):
+        raise AssertionError(f"fit_physics warm start: {res['warm_start']}")
+    res["launches"] = launches  # counted over this last fit_physics call
+    res["witness"] = fit_witness(torch, fit)
+    if profile:
+        obs, times, _, Mint, Mext = fit_track(torch, FIT_STATES["topspin"])
+        res["profile"] = profile_calls(torch, lambda: pipe.fit_physics(obs, times, Mint, Mext),
+                                       f"one warm fit_physics call ({FIT_OBS} detections)")
+    return res
+
+
+def fit_witness(torch, fit):
+    """The 1 s tracks against the JAX fit on the same starts: tests/fit_witness_1s.npz
+    (tests/make_fit_witness.py) holds the two test states observed over 0.98 s by the JAX
+    package, JAX's draws of `default_inits` from PRNGKey(k) for each k in it, and the
+    JAX fit's outcome on the CPU from them. fit_physics fits the same observations from
+    the same draws (`draws=`) on the card. Gates: where the JAX fit recovers the state
+    (mean 3D error under FIT_GATE_CM and the spin class), the port must too; on every
+    draw the port must reach JAX's outcome (the same spin class, mean errors within
+    FIT_GATE_CM of each other)."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core import fitting as FIT
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                             "fit_witness_1s.npz"))
+    res = {}
+    for name in FIT_STATES:
+        obs, times, truth, Mint, Mext = (d[f"{name}/{k}"] for k in
+                                         ("obs", "times", "truth", "Mint", "Mext"))
+        keys = sorted({int(k.split("/")[1][3:]) for k in d.files
+                       if k.startswith(f"{name}/key")})
+        for key in keys:
+            p = f"{name}/key{key}/"
+            draws = {k: d[p + k] for k in ("z_t", "v_mult", "v_noise", "w_noise")}
+            (spin, pos, r), seconds, launches = fit(obs, times, Mint, Mext, draws=draws)
+            err = float((100 * np.linalg.norm(pos - truth, axis=-1)).mean())
+            cls = float(FIT.spin_class_from_fit(r))
+            jax_err, jax_cls = float(d[p + "mean_err_cm"]), float(d[p + "spin_class"])
+            entry = {"mean_err_cm": err, "spin_class": cls, "reproj_px": float(r.reproj_px),
+                     "basin_spread_m": float(r.basin_spread_m), "seconds": seconds,
+                     "jax_mean_err_cm": jax_err, "jax_spin_class": jax_cls,
+                     "jax_reproj_px": float(d[p + "reproj_px"]),
+                     "jax_basin_spread_m": float(d[p + "basin_spread_m"]),
+                     "recovered": err < FIT_GATE_CM and cls == FIT_SPIN_CLASS[name],
+                     "jax_recovered": jax_err < FIT_GATE_CM and jax_cls == FIT_SPIN_CLASS[name],
+                     "same_outcome": cls == jax_cls and abs(err - jax_err) < FIT_GATE_CM}
+            res[f"{name}_key{key}"] = entry
+            log("fit", witness=f"{name}_key{key}",
+                **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in entry.items()})
+            if (entry["jax_recovered"] and not entry["recovered"]) or not entry["same_outcome"]:
+                raise AssertionError(f"fit_physics over 1 s on {name} from JAX's draws of "
+                                     f"PRNGKey({key}) does not reach the JAX fit's outcome: "
+                                     f"{entry}")
+    return res
+
+
 def profile_calls(torch, fn, label, categories=None):
     """Device time by kernel over one warm call of `fn` (torch.profiler), the idle share,
     and the Python lines that make the host wait for the card."""
@@ -2544,12 +3069,44 @@ def k6_summary(k6_res):
             "per_size": k6_res["timed"]}
 
 
+def s1_summaries(physics_res, datagen_res, fit_res):
+    """The kernels-line entries of S1's two modes: forward at the datagen batch (launches
+    over the datagen phase's warm generate_dataset call), tangent at the fit's starts
+    (launches over one fit_physics call)."""
+    common = {"route": "cuda", "source": "upliftingtabletennis_torch/ops/csrc/physics.cu",
+              "replaces": "upliftingtabletennis_tpu/core/physics.py:335", "library_ms": None,
+              "library_note": "no PyTorch call integrates the flight; the plain version runs "
+                              "about 300 elementwise launches per step"}
+    fwd = max(physics_res["forward"], key=lambda e: e["ms"])
+    tan = physics_res["tangent"]
+    keys = ("ms", "ms_pipelined", "plain_ms", "bound_ms", "bound_by", "bound_term", "bytes_ms",
+            "ops_ms", "chain_ms", "chain_cycles_per_step", "flops_per_step",
+            "op_latency_cycles", "one_trajectory_ms")
+    return [
+        {"name": "simulate", **common, "launches": datagen_res["launches"],
+         "max_abs_err": max(max(e["max_abs_err"].values()) for e in physics_res["forward"]),
+         **{k: fwd[k] for k in keys},
+         "per": f"one forward-mode call at {S1_BATCH} trajectories x {S1_FRAMES} frames (the "
+                f"datagen batch; the slower direction); chain_ms: the serial chain worked out "
+                f"from the code (s1_chain); one_trajectory_ms: the kernel on one trajectory, "
+                f"measured; launches over one generate_dataset call of "
+                f"{DATAGEN_ACCEPTED} accepted"},
+        {"name": "simulate_tangent", **common, "launches": fit_res["launches"]["simulate_tangent"],
+         "max_abs_err": max(tan["max_abs_err"].values()), **{k: tan[k] for k in keys},
+         "per": f"one tangent-mode call at {FIT_STARTS} starts x {FIT_FRAMES} frames (fit_physics "
+                f"at its defaults); chain_ms: the serial chain worked out from the code "
+                f"(s1_chain); one_trajectory_ms: the kernel on one start (9 threads), "
+                f"measured; launches over one fit_physics call"},
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm b2 predict, one warm chunk of the four "
-                         "detectors and one warm b2 training step with torch.profiler "
+                         "detectors, one warm b2 training step, one warm rally piece, one "
+                         "warm generate_dataset and one warm fit_physics with torch.profiler "
                          "(time by kernel)")
     opts = ap.parse_args()
 
@@ -2631,9 +3188,12 @@ def main() -> int:
     rally_res = run_rally_phase(torch, Ops, pipe, profile=opts.profile)
     uplifting_res = run_uplifting(torch)
     calib_res = run_calib(torch, pipe)
+    physics_res = run_physics(torch)
+    datagen_res = run_datagen(torch, profile=opts.profile)
+    fit_res = run_fit(torch, pipe, datagen_res.pop("tracks"), profile=opts.profile)
     del pipe
 
-    # 20. hygiene
+    # 23. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -2717,6 +3277,7 @@ def main() -> int:
                     f"dx, dw and db of K2's recompute in each of the 16 blocks); library: "
                     f"aten.convolution_backward (dx, dw, db) in channels_last bf16"),
     ]
+    kernels += s1_summaries(physics_res, datagen_res, fit_res)
     for entry in kernels:  # the rally's main path: K1, K2, K5a and K5b over 64 frames
         if rally_res["launches"].get(entry["name"]):
             entry["launches_rally"] = rally_res["launches"][entry["name"]]
@@ -2728,8 +3289,8 @@ def main() -> int:
                        "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
                        "vitpose": vit_res, "k4": k4_entries, "k4_backward": k4_bwd_entries,
                        "train": train_res, "rally": rally_res, "uplifting": uplifting_res,
-                       "calib": calib_res,
-                       "total_s": total}, f, indent=1)
+                       "calib": calib_res, "physics": physics_res, "datagen": datagen_res,
+                       "fit": fit_res, "total_s": total}, f, indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""K1, K2, K3, K4, K5 and K6 CUDA kernels, and the phase probes of K1 and K2, against
+"""K1, K2, K3, K4, K5, K6 and S1 CUDA kernels, and the phase probes of K1 and K2, against
 their plain PyTorch versions on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc and skip without them. They import
@@ -567,3 +567,86 @@ def test_k5_raises_under_grad(gen):
         conv1x1_bias_act(x, w[0, 0])
     with torch.no_grad():
         conv3x3_bias_act(x, w)
+
+
+# --- S1, the integrator (ops/csrc/physics.cu) -------------------------------------------
+# Held as chip_smoke.py's physics phase holds it, per trajectory over the whole run:
+# |dr| <= 1e-4 m, |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s, dr/dq within 1e-3 of the
+# trajectory's largest |dr/dq|; the kernel and the plain version run the same float32
+# operations in the same order, and at most 8 of 8,192 trajectories (none of fewer) may
+# see a knife-edge contact one step apart. The autograd Function's gradient against
+# autograd through the plain version: 1e-5 relative in norm (reverse mode sums in another
+# order than the tangent's contraction).
+S1_ATOL = (1e-4, 1e-3, 1e-2)
+S1_JAC_RTOL = 1e-3
+
+
+def _s1_states(n, direction="left_to_right"):
+    from upliftingtabletennis_torch.data import datagen as DG
+
+    return DG.sample_initial_conditions(n, "intermediate", direction,
+                                        torch.Generator(device="cuda").manual_seed(n), "cuda")
+
+
+@pytest.mark.parametrize("n,frames,first_step", [(8192, 500, True), (1, 500, True),
+                                                 (33, 37, False)])
+def test_s1_forward_matches_plain(gen, n, frames, first_step):
+    from upliftingtabletennis_torch.core import physics as P
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    s0 = _s1_states(n)
+    before = S1.simulate.launches
+    got = S1.simulate(s0, frames, first_step=first_step)
+    torch.cuda.synchronize()
+    assert S1.simulate.launches == before + 1
+    want = P.simulate(s0, frames, first_step=first_step)
+    over = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for g, w, tol in zip(got, want, S1_ATOL):
+        assert g.shape == (frames, n, 3)
+        over |= ~((g - w).abs().amax(dim=(0, 2)) <= tol)
+    assert int(over.sum()) <= (8 if n >= 8192 else 0)
+
+
+@pytest.mark.parametrize("n,frames", [(32, 502), (3, 20)])
+def test_s1_tangent_matches_plain(gen, n, frames):
+    from upliftingtabletennis_torch.core import physics as P
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    s0 = _s1_states(n, "right_to_left")
+    got_r, got_j = S1.simulate_tangent(s0, frames, 2, v_scale=10.0, w_scale=100.0)
+    torch.cuda.synchronize()
+    want_r, want_j = P.simulate_tangent(s0, frames, 2, v_scale=10.0, w_scale=100.0)
+    assert got_j.shape == (frames, n, 3, 9)
+    r_err = (got_r - want_r).abs().amax(dim=(0, 2))
+    j_err = (got_j - want_j).abs().amax(dim=(0, 2, 3))
+    ok = (r_err <= S1_ATOL[0]) & (j_err <= S1_JAC_RTOL * want_j.abs().amax(dim=(0, 2, 3)))
+    assert int((~ok).sum()) <= (1 if n >= 32 else 0)
+    np_r = S1.simulate(s0, frames).r  # the forward mode's positions are the same arithmetic
+    assert torch.equal(np_r, got_r)
+
+
+def test_s1_backward_matches_autograd_through_plain(gen):
+    from upliftingtabletennis_torch.core import physics as P
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    s0 = _s1_states(32)
+    q = torch.cat([s0.r, s0.v / 10.0, s0.w / 100.0], -1).requires_grad_(True)
+    pos = S1.trajectory_positions(q, 40, 2, v_scale=10.0, w_scale=100.0)
+    cot = torch.randn(pos.shape, generator=gen, device="cuda")
+    (g_kernel,) = torch.autograd.grad((pos * cot).sum(), q)
+    ref = P.simulate(S1.params_to_state(q, 10.0, 100.0), 40).r
+    (g_plain,) = torch.autograd.grad((ref * cot).sum(), q)
+    assert torch.equal(pos.detach(), ref.detach())
+    assert float((g_kernel - g_plain).norm() / g_plain.norm()) < 1e-5
+
+
+def test_s1_constants_and_refusals(gen):
+    from upliftingtabletennis_torch.core import physics as P
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    assert S1.kernel_const_names() == list(P.KERNEL_CONSTANTS)
+    s0 = _s1_states(4)
+    with pytest.raises(TypeError, match="float32"):
+        S1.simulate(P.BallState(*(x.double() for x in s0)), 4)
+    with pytest.raises(ValueError, match="shape"):
+        S1.simulate(P.BallState(s0.r, s0.v[:2], s0.w), 4)

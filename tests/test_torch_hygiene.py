@@ -9,7 +9,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "upliftingtabletennis_torch"
-BANNED = ("jax", "jaxlib", "flax", "orbax", "safetensors", "upliftingtabletennis_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors", "upliftingtabletennis_tpu")
 
 
 def _modules():

@@ -1,8 +1,9 @@
 """Camera geometry and table constants in torch.
 
 Port of the parts of `upliftingtabletennis_tpu/core/geometry.py` that the rally
-path uses: the constants, the world -> camera -> image projection, `get_Mext`, and
-the flight frame of the spin transforms. Every function is written against the
+path and the physics fit use: the constants, the world -> camera -> image projection,
+`get_Mext`, the camera's location and axes, and the flight frame of the spin
+transforms. Every function is written against the
 trailing dimensions and broadcasts over leading batch dimensions. The 3x3 and 4x4
 products are matmuls in the input's dtype, f32 on the card under PyTorch's default of
 no TF32 (the JAX module runs them at `Precision.HIGHEST`).
@@ -13,9 +14,11 @@ import numpy as np
 import torch
 
 __all__ = ["MAX_FPS", "BASE_FX", "BASE_FY", "TABLE_HEIGHT", "TABLE_POINTS",
-           "NUM_TABLE_KEYPOINTS", "KEYPOINT_VISIBLE", "KEYPOINT_INVISIBLE", "to_homogeneous",
-           "world2cam", "cam2img", "world2img", "get_Mext", "transform_rotation_axes",
-           "inverse_transform_rotation_axes"]
+           "NUM_TABLE_KEYPOINTS", "KEYPOINT_VISIBLE", "KEYPOINT_INVISIBLE", "TABLE_WIDTH",
+           "TABLE_LENGTH", "NET_HEIGHT_ABOVE_TABLE", "NET_TOTAL_HEIGHT", "NET_TOTAL_WIDTH",
+           "TABLE_CONNECTIONS", "to_homogeneous", "world2cam", "cam2img", "world2img",
+           "get_Mext", "get_camera_location", "get_forward", "get_up", "get_right",
+           "transform_rotation_axes", "inverse_transform_rotation_axes"]
 
 # RoPE time base: the smallest timestep the rotary time embedding resolves.
 MAX_FPS = 500
@@ -27,7 +30,9 @@ TABLE_HEIGHT = 0.76
 TABLE_WIDTH = 1.525
 TABLE_LENGTH = 2.74
 NET_POST_OFFSET = 0.1525
-NET_TOTAL_HEIGHT = TABLE_HEIGHT + 0.1525
+NET_HEIGHT_ABOVE_TABLE = 0.1525
+NET_TOTAL_HEIGHT = TABLE_HEIGHT + NET_HEIGHT_ABOVE_TABLE
+NET_TOTAL_WIDTH = TABLE_WIDTH + 2 * NET_POST_OFFSET
 
 KEYPOINT_VISIBLE = 1
 KEYPOINT_INVISIBLE = 0
@@ -53,6 +58,12 @@ TABLE_POINTS = np.array(
     dtype=np.float32,
 )
 NUM_TABLE_KEYPOINTS = 13
+# The table's wireframe as pairs of TABLE_POINTS indices.
+TABLE_CONNECTIONS = (
+    (0, 2), (2, 4), (1, 3), (3, 5), (0, 1), (4, 5),
+    (6, 2), (2, 3), (3, 7), (6, 9), (7, 10), (9, 10),
+    (11, 8), (12, 8),
+)
 
 
 def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
@@ -104,6 +115,31 @@ def get_Mext(c: torch.Tensor, f: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def get_camera_location(Mext: torch.Tensor) -> torch.Tensor:
+    """Camera centre in world coordinates: c = -R^T t."""
+    R = Mext[..., :3, :3]
+    t = Mext[..., :3, 3]
+    return -_matvec(R.transpose(-1, -2), t)
+
+
+def get_forward(Mext: torch.Tensor) -> torch.Tensor:
+    """Unit forward direction (the third row of R)."""
+    f = Mext[..., 2, :3]
+    return f / torch.linalg.norm(f, dim=-1, keepdim=True)
+
+
+def get_up(Mext: torch.Tensor) -> torch.Tensor:
+    """Unit up direction (minus the second row of R)."""
+    u = -Mext[..., 1, :3]
+    return u / torch.linalg.norm(u, dim=-1, keepdim=True)
+
+
+def get_right(Mext: torch.Tensor) -> torch.Tensor:
+    """Unit right direction (the first row of R)."""
+    r = Mext[..., 0, :3]
+    return r / torch.linalg.norm(r, dim=-1, keepdim=True)
 
 
 def _flight_frame(r_traj: torch.Tensor):

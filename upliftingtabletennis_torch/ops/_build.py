@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("fused_attention.cu", "fused_ffn.cu", "fused_conv.cu", "flash_attention.cu", "nms.cu",
-           "dwconv.cu", "fused_attention_probe.cu", "fused_ffn_probe.cu")
+           "dwconv.cu", "fused_attention_probe.cu", "fused_ffn_probe.cu", "physics.cu")
 # No --use_fast_math: it would change expf and erff.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

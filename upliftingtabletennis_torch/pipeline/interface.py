@@ -37,9 +37,12 @@ filtered, and the uplifting model runs when at least 2 ball detections survive.
 `calibrate_camera` fits the camera to the fused table keypoints
 (`core/calibration.py`).
 
+`TableTennisPipeline.fit_physics` recovers (r0, v0, w0) of one flight segment from its
+filtered 2D track by differentiable-physics fitting (`core/fitting.py`, the S1
+integrator kernel), optionally seeded with the uplifting model's output.
+
 Not ported: `UpliftingModel.from_reference_checkpoint` (no reference `.pt` in the
-repo), `TableTennisPipeline.fit_physics` (ROADMAP queue 1, item 3) and the `mesh`
-argument (queue 1, item 5).
+repo) and the `mesh` argument (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -52,6 +55,8 @@ import torch
 from upliftingtabletennis_torch._device import resolve_device
 from upliftingtabletennis_torch.core import geometry as G
 from upliftingtabletennis_torch.core.calibration import calibrate_camera as _calibrate
+from upliftingtabletennis_torch.core.fitting import fit_trajectory
+from upliftingtabletennis_torch.core.physics import BallState
 from upliftingtabletennis_torch.data.image_transforms import (host_downscale, i420_to_rgb,
                                                               normalize_image)
 from upliftingtabletennis_torch.models.factory import get_detector
@@ -482,6 +487,46 @@ class TableTennisPipeline:
         if resolution is None:
             resolution = getattr(self, "_last_frame_res", None)
         return TableDetector.calibrate_camera(keypoints, resolution, self.device)
+
+    @staticmethod
+    def physics_seed(init, times) -> Optional[BallState]:
+        """The fit's seed from `predict`'s output init = (spin_local (3,), pos3d (T', 3)):
+        r0 the first position, v0 from the first two positions and times, w0 the spin
+        in the world frame (float32 CPU tensors); None without at least 2 positions."""
+        spin_local, pos3d = init
+        if pos3d is None or len(pos3d) < 2:
+            return None
+        times = np.asarray(times, np.float32)
+        v0 = (np.asarray(pos3d[1]) - np.asarray(pos3d[0])) / max(float(times[1] - times[0]),
+                                                                 1e-3)
+        pos = torch.as_tensor(np.asarray(pos3d), dtype=torch.float32)
+        w_world = G.inverse_transform_rotation_axes(
+            torch.as_tensor(np.asarray(spin_local), dtype=torch.float32), pos)
+        return BallState(r=pos[0], v=torch.as_tensor(v0, dtype=torch.float32), w=w_world)
+
+    def fit_physics(self, ball, times, Mint, Mext, *, init=None, **fit_kw):
+        """Recover (r0, v0, w0) of ONE ball-flight segment by differentiable-physics
+        fitting of its filtered 2D detections (`core/fitting.py:fit_trajectory`), on the
+        pipeline's device unless `device=` is given.
+
+        ball (T', 2) filtered detections in the 1920x1080 frame (the `run_rally` output);
+        times (T',) seconds; (Mint, Mext) from `calibrate_camera`. `init=(spin_local,
+        pos3d)` seeds the fit with `predict`'s output (the hybrid mode: the seed joins the
+        full multi-start and breaks loss ties; keep `n_starts` at its default). The
+        horizon is rounded up to a 0.25 s bucket. Returns (spin_local (3,), positions_3d
+        (T', 3), FitResult); gate downstream use on `FitResult.reproj_px`."""
+        ball = np.asarray(ball, np.float32)
+        times = np.asarray(times, np.float32)
+        mask = np.ones(len(ball), np.float32)
+        init_state = self.physics_seed(init, times) if init is not None else None
+        n_frames = int(np.ceil((float(times.max()) + 1e-3) / 0.25)) * 125 + 2
+        if "device" not in fit_kw:
+            fit_kw["device"] = self.device
+        res = fit_trajectory(ball, times, mask, np.asarray(Mint, np.float32),
+                             np.asarray(Mext, np.float32), n_frames=n_frames,
+                             init_state=init_state, **fit_kw)
+        spin_local = G.transform_rotation_axes(res.state0.w, res.r_world)
+        return spin_local.cpu().numpy(), res.r_world.cpu().numpy(), res
 
     @staticmethod
     def reproject(positions_3d, Mint, Mext, device="cuda"):
