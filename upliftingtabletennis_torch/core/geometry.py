@@ -1,9 +1,9 @@
 """Camera geometry and table constants in torch.
 
 Port of the parts of `upliftingtabletennis_tpu/core/geometry.py` that the rally
-path and the physics fit use: the constants, the world -> camera -> image projection,
-`get_Mext`, the camera's location and axes, and the flight frame of the spin
-transforms. Every function is written against the
+path, the physics fit and the uplifting trainer use: the constants, the world -> camera
+-> image projection, `get_Mext`, the camera's location and axes, the flight frame of the
+spin transforms and `rescale_intrinsics`. Every function is written against the
 trailing dimensions and broadcasts over leading batch dimensions. The 3x3 and 4x4
 products are matmuls in the input's dtype, f32 on the card under PyTorch's default of
 no TF32 (the JAX module runs them at `Precision.HIGHEST`).
@@ -13,13 +13,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MAX_FPS", "BASE_FX", "BASE_FY", "TABLE_HEIGHT", "TABLE_POINTS",
+__all__ = ["WIDTH", "HEIGHT", "MAX_FPS", "BASE_FX", "BASE_FY", "TABLE_HEIGHT", "TABLE_POINTS",
            "NUM_TABLE_KEYPOINTS", "KEYPOINT_VISIBLE", "KEYPOINT_INVISIBLE", "TABLE_WIDTH",
            "TABLE_LENGTH", "NET_HEIGHT_ABOVE_TABLE", "NET_TOTAL_HEIGHT", "NET_TOTAL_WIDTH",
            "TABLE_CONNECTIONS", "to_homogeneous", "world2cam", "cam2img", "world2img",
            "get_Mext", "get_camera_location", "get_forward", "get_up", "get_right",
-           "transform_rotation_axes", "inverse_transform_rotation_axes"]
+           "transform_rotation_axes", "inverse_transform_rotation_axes", "rescale_intrinsics"]
 
+# The uplifting data's working resolution (the synthetic cameras, TTST); inference runs
+# at 1920x1080 (`pipeline/interface.py`).
+HEIGHT, WIDTH = 1440, 2560
 # RoPE time base: the smallest timestep the rotary time embedding resolves.
 MAX_FPS = 500
 # Focal lengths regressed from a broadcast video.
@@ -166,3 +169,15 @@ def inverse_transform_rotation_axes(local_rotation: torch.Tensor,
     e_x, e_y, e_z = _flight_frame(r_traj)
     R_T = torch.stack([e_x, e_y, e_z], dim=-1)  # columns are the basis vectors
     return _matvec(R_T, local_rotation)
+
+
+def rescale_intrinsics(Mint: torch.Tensor, src_wh, dst_wh) -> torch.Tensor:
+    """Mint (..., 3, 3) rescaled from resolution src_wh to dst_wh, pixel-centre-aware:
+    focal lengths times the scale, principal point (c + 0.5) s - 0.5."""
+    sx, sy = dst_wh[0] / src_wh[0], dst_wh[1] / src_wh[1]
+    out = Mint.clone()
+    out[..., 0, 0] = Mint[..., 0, 0] * sx
+    out[..., 1, 1] = Mint[..., 1, 1] * sy
+    out[..., 0, 2] = (Mint[..., 0, 2] + 0.5) * sx - 0.5
+    out[..., 1, 2] = (Mint[..., 1, 2] + 0.5) * sy - 0.5
+    return out

@@ -78,10 +78,11 @@ def _affine3(a, b, c, d, tx, ty):
                         torch.stack([zero, zero, one], -1)], -2)
 
 
-def draw_affine_uniforms(gen: torch.Generator, batch: int, device="cpu") -> torch.Tensor:
+def draw_affine_uniforms(gen: torch.Generator, batch: int, device=None) -> torch.Tensor:
     """(8, batch) uniforms in [0, 1): flip, rotate?, angle, translate?, tx and ty (one
-    draw), crop?, crop scale, ox and oy (one draw)."""
-    return torch.rand(8, batch, generator=gen, device=gen.device).to(device)
+    draw), crop?, crop scale, ox and oy (one draw); drawn on the generator's device and
+    moved to `device` (by default they stay there)."""
+    return torch.rand(8, batch, generator=gen, device=gen.device).to(device or gen.device)
 
 
 def sample_affines(u, src_hw, dst_wh, cfg: ImageAugmentConfig, train: bool):
@@ -184,9 +185,10 @@ def warp_images(images, A, dst_wh):
     return out.reshape(B, DH, DW, C)
 
 
-def draw_jitter_uniforms(gen: torch.Generator, batch: int, device="cpu") -> torch.Tensor:
-    """(5, batch) uniforms in [0, 1): jitter?, brightness, contrast, saturation, hue."""
-    return torch.rand(5, batch, generator=gen, device=gen.device).to(device)
+def draw_jitter_uniforms(gen: torch.Generator, batch: int, device=None) -> torch.Tensor:
+    """(5, batch) uniforms in [0, 1): jitter?, brightness, contrast, saturation, hue; drawn
+    on the generator's device and moved to `device` (by default they stay there)."""
+    return torch.rand(5, batch, generator=gen, device=gen.device).to(device or gen.device)
 
 
 def color_jitter(u, images, cfg: ImageAugmentConfig):

@@ -17,6 +17,8 @@ The model runs in f32 (about 2 M parameters at batch 1 for 'large').
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -26,7 +28,7 @@ from upliftingtabletennis_torch.ops.attention import (NEG_INF, apply_rope_over_t
                                                       masked_attention)
 
 __all__ = ["Mlp2", "Head3", "RopeAttention", "TransformerLayer", "FirstStage",
-           "SingleStageModel", "MultiStageModel", "get_uplifting_model"]
+           "SingleStageModel", "MultiStageModel", "get_uplifting_model", "reference_init"]
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
 
@@ -253,3 +255,39 @@ def get_uplifting_model(name: str = "connectstage", size: str = "large", mode: s
                                use_skipconnection=(name == "connectstage"),
                                full_backprop=full_backprop)
     raise ValueError(f"unknown model name {name!r}")
+
+
+def reference_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX model's initialisation, drawn from `generator` (on the CPU): every kernel
+    xavier-uniform, U(-g sqrt(6 / (fan_in + fan_out)), +...), with the gains of the
+    reference (1.414 before a ReLU: Mlp2.fc1, Head3.fc1 and fc2; 1 elsewhere), biases 0,
+    LayerNorms 1 and 0, the cls token xavier-uniform over fans (1, dim) as flax counts
+    them for a (1, 1, dim) array. The trainer starts from it; inference without a
+    checkpoint uses `pipeline.interface.init_weights`."""
+    def xavier(w, gain, fan_in, fan_out):
+        limit = gain * math.sqrt(6.0 / (fan_in + fan_out))
+        w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * limit)
+
+    def linear(layer, gain):
+        xavier(layer.weight, gain, layer.in_features, layer.out_features)
+        if layer.bias is not None:
+            layer.bias.zero_()
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Mlp2):
+                linear(m.fc1, 1.414)
+                linear(m.fc2, 1.0)
+            elif isinstance(m, Head3):
+                linear(m.fc1, 1.414)
+                linear(m.fc2, 1.414)
+                linear(m.fc3, 1.0)
+            elif isinstance(m, RopeAttention):
+                linear(m.qkv, 1.0)
+                linear(m.proj, 1.0)
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        if isinstance(getattr(model, "cls_token", None), nn.Parameter):
+            xavier(model.cls_token, 1.0, 1, model.cls_token.shape[-1])
+    return model
