@@ -119,7 +119,7 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             frames at 50 fps through `TableTennisPipeline.run_rally`, the main path: launches
             per piece (32 K1, 32 K2, 80 K5a, 28 K5b; half of each on a ball-only piece of
             `table_stride` 16) with every count set to 0 just before and read just after;
-            frames/s (median and range of 3 warm calls) in rgb and i420, with upload_res
+            frames/s (median and range of 2 warm calls) in rgb and i420, with upload_res
             "model" and None, table_stride 1 and 2; the host downscale's ms per frame and
             the rate it would leave if it overlapped nothing (`no_overlap_frames_per_s`); every
             detector's peaks through the slab step (`_rally_peaks`) on 61 frames (triplets
@@ -177,7 +177,25 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             call for present, `hub.uplifting(checkpoint=model_synthetic)` equal to the run's
             EMA weights), and `run_uplifting_eval.main` on it: finite metrics under the four
             robustness transforms;
-24. hygiene  neither JAX nor the JAX package was imported.
+24. closed_loop the closed-loop protocol (`eval/closed_loop.py`) with the committed trained
+            weights (`upliftingtabletennis_torch/weights/closed_loop/`: WASB and b0 at
+            960x544, the back-view uplifting model): (a) CL_RALLIES held-out rallies of a
+            store generated on the card, rendered at 1920x1080 and scored through
+            `run_rally` against the simulation (K1/K2 in b0, K5a/K5b in WASB, counted),
+            gated on the ball, table, calibration and 3D medians, printed beside the JAX
+            package's numbers, ms per rally; the kernel path's ball and table peaks on one
+            rally's frames against a `kernels=False` f32 copy's; (b) one training step of
+            WASB (batch 2, 960x544) and the table HRNet with remat, on the card and on the
+            CPU in f32 from the same weights and batch (the CPU's steps start after the
+            build, on a low-priority thread): the loss, every gradient and the
+            running statistics, a planted fault (the statistics moved again by the remat
+            recompute) that must fail, and the unbiased-variance fault's error; ms per
+            bf16 step and peak memory with and without remat at 960x544 batch 2 and at
+            run_detection's 1280x704 batch 4; (c) `closed_loop.main` for a few training
+            steps per task and 2 rallies, and `run_detection --model wasb` / `--task table
+            --model hrnet` for 2 steps on a tiny TTHQ layout, whose checkpoints
+            `BallDetector` / `TableDetector` load;
+25. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -196,6 +214,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.time()
 
@@ -335,7 +354,7 @@ K3_GRAD_SHAPE = (2, 13440, 1400, 2, 64)  # b2 ToMe stage 2 at batch 2
 
 # the rally: 64 frames at 50 fps through the production ensemble at chunk 8 (8 pieces);
 # the slab check on 61 frames: 7 whole pieces and a last piece of 5 padded to 8
-RALLY_FRAMES, RALLY_FPS, RALLY_CALLS, RALLY_EDGE_FRAMES = 64, 50.0, 3, 61
+RALLY_FRAMES, RALLY_FPS, RALLY_CALLS, RALLY_EDGE_FRAMES = 64, 50.0, 2, 61
 # launches of one piece with table frames: two b2 (16 K1 + 16 K2 each), WASB and the table
 # HRNet (40 K5a + 14 K5b each); a ball-only piece runs half of each
 RALLY_PER_PIECE = {"fused_attention_block": 32, "fused_ln_ffn": 32, "conv3x3_bias_act": 80,
@@ -434,6 +453,44 @@ UPLIFT_LOSS_RTOL, UPLIFT_GRAD_REL, UPLIFT_UPDATE_REL, UPLIFT_EMA_OFFSET = 1e-4, 
 # held to JAX on the CPU (tests/test_torch_uplifting_train.py::test_full_width_*) and the
 # card's to the CPU's by gate 2.
 UPLIFT_FIT_STEPS, UPLIFT_FIT_LR, UPLIFT_FIT_RATIO, UPLIFT_FIT_RTOL = 60, 1e-3, 0.9, 1e-2
+# closed_loop: the committed trained weights scored on CL_RALLIES held-out rallies of a
+# 256-trajectory store generated on the card (seed 0), detectors at their trained
+# 960x544. The gates sit at about twice the JAX package's 63-rally numbers (README's
+# round-5 table, artifacts/closed_loop/closed_loop_results.json: ball 0.48, table 0.92,
+# calibration 1.08 px, 3D 6.62 cm medians): 8 rallies give a noisy median, and the port
+# runs its own draws (cameras, noise, RANSAC). Spin accuracy is reported, not gated.
+CL_RALLIES = 8
+CL_GATES = {"ball_detection_px_median": 1.0, "table_detection_px_median": 2.0,
+            "calib_reproj_px_median": 3.0, "pos3d_err_cm_median": 15.0}
+CL_JAX = {"ball_detection_px_median": 0.48, "ball_detection_px_mean": 0.53,
+          "table_detection_px_median": 0.92, "table_detection_px_mean": 1.23,
+          "calib_reproj_px_median": 1.08, "pos3d_err_cm_median": 6.62,
+          "pos3d_err_cm_mean": 8.91, "spin_accuracy": 0.857, "spin_macro_f1": 0.837,
+          "physfit_coverage": 0.746, "physfit_pos3d_err_cm_median_converged": 4.05}
+# the kernel path (bf16) against a kernels=False f32 copy on the same frames of
+# CL_PEAK_RALLIES rallies, with the copy also run in bf16 (the kernels' type without the
+# kernels). A detection is a heatmap peak of at least CL_PEAK_MIN (the table detector's
+# visibility threshold) on either path; one seen by one path only is a miss. bf16 alone
+# moves a sub-pixel peak by up to 0.6 px and flips an ambiguous table keypoint's argmax by
+# 23 px (on an H100: the bf16 copy 0.620 px worst on 70 ball detections, 22.81
+# px on 988 table detections; the kernel path 0.503 and 22.83). So a detection where the
+# kernel path misses the f32 peak by more than CL_PEAK_PX is charged to the kernels only
+# where the bf16 copy is within CL_PEAK_PX of it; at least CL_PEAK_SHARE of the
+# detections must carry no charge. Both bf16 paths' shares within CL_PEAK_NEAR and
+# CL_PEAK_PX of the f32 peaks, and the kernel path's of the bf16 copy's, are logged.
+CL_PEAK_PX, CL_PEAK_SHARE, CL_PEAK_MIN, CL_PEAK_RALLIES, CL_PEAK_NEAR = 1.0, 0.99, 0.1, 2, 0.5
+# one HRNet training step on the card against the CPU, both f32 (no TF32), from the same
+# weights and batch: the trainer's limits (the loss within 2e-2 relative, each gradient
+# within 5e-2 of its tensor's max |grad|) and the running statistics within 1e-3 of each
+# tensor's max. The statistics moved twice (the remat recompute running the update in
+# place) move them by 10% of their distance to the batch's: that must fail. The unbiased
+# variance moves them by var / (n - 1), n >= 2 x 68 x 120 at 960x544: its error is logged.
+HR_STEP_RES, HR_STEP_BATCH = (960, 544), 2
+HR_LOSS_RTOL, HR_GRAD_REL, HR_STATS_REL = 2e-2, 5e-2, 1e-3
+HR_TIMED = (((960, 544), 2), ((1280, 704), 4))  # (W, H), batch: the closed loop, run_detection
+HR_TIMED_STEPS = 2
+# the CLI: a few steps per task at the closed loop's default resolution, 2 rallies
+CL_CLI_STEPS, CL_CLI_RES = 2, (960, 544)
 # the CUDA API calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 CARD = ""  # nvidia-smi's name and power limit, set by main
@@ -2093,7 +2150,8 @@ def grad_rel_errors(torch, names, got, want):
 
 def tiny_tthq(root, n_frames=8, hw=(180, 320)):
     """A TTHQ layout of two videos of synthetic frames (a bright blob on texture), written as
-    PNGs: video 1 is the val/test pool, video 2 trains."""
+    PNGs, with ball and table (13 random keypoints) labels: video 1 is the val/test pool,
+    video 2 trains."""
     import numpy as np
 
     from upliftingtabletennis_torch.data.png import write_png
@@ -2102,6 +2160,8 @@ def tiny_tthq(root, n_frames=8, hw=(180, 320)):
     rng = np.random.default_rng(1)
     yy, xx = np.mgrid[0:H, 0:W]
     rows = ["video;frame;ball_x;ball_y;ball_flag"]
+    table_rows = ["video;frame;" + ";".join(f"point_{k}_x;point_{k}_y;point_{k}_flag"
+                                            for k in range(1, 14))]
     for video in (1, 2):
         os.makedirs(os.path.join(root, "tthq", f"{video:02d}"))
         for f in range(n_frames):
@@ -2112,8 +2172,13 @@ def tiny_tthq(root, n_frames=8, hw=(180, 320)):
                       np.clip(img, 0, 255).astype(np.uint8))
             if 1 <= f < n_frames - 1:
                 rows.append(f"{video};{f};{bx:.2f};{by:.2f};2")
+                table_rows.append(f"{video};{f};" + ";".join(
+                    f"{rng.uniform(5, W - 5):.2f};{rng.uniform(5, H - 5):.2f};2"
+                    for _ in range(13)))
     with open(os.path.join(root, "tthq", "ball_detection.csv"), "w") as fh:
         fh.write("\n".join(rows))
+    with open(os.path.join(root, "tthq", "table_detection.csv"), "w") as fh:
+        fh.write("\n".join(table_rows))
 
 
 def run_train(torch, ops, frames, profile=False):
@@ -3360,6 +3425,389 @@ def run_uplift_train(torch, profile=False):
     return res
 
 
+def cl_weights(name):
+    """A committed closed-loop checkpoint of the port."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "upliftingtabletennis_torch",
+                        "weights", "closed_loop", name)
+
+
+def cl_peak_check(torch, det, items):
+    """The detector's peaks (kernel path, bf16) against a kernels=False f32 copy's on the
+    same bf16-rounded inputs, with the copy run in bf16 beside them, over `items` (N, H,
+    W, C) uint8 on the card at the model's resolution, in chunks of HR_CHUNK. Returns the
+    detections (a peak of at least CL_PEAK_MIN on either path), the share free of a
+    charge to the kernels (see CL_PEAK_SHARE), and each path's shares and worst px."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.data.image_transforms import normalize_image
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.ops.peak import extract_peaks
+    from upliftingtabletennis_torch.pipeline.interface import HEIGHT, WIDTH
+
+    ref, _ = get_detector(det.model_name, det.task, kernels=False, resolution=det.resolution)
+    ref.load_state_dict(det.model.state_dict())
+    ref.eval().to(DEVICE)
+    d_k, d_b, d_kb = [], [], []  # kernel-f32, bf16 copy-f32, kernel-bf16 copy, px
+    missed = weak = 0
+    with torch.no_grad():
+        for s in range(0, len(items), HR_CHUNK):
+            x = normalize_image(items[s:s + HR_CHUNK].float()).to(det.dtype)
+            p = {}
+            for what, model, dtype in (("kernel", det.model, det.dtype),
+                                       ("bf16", ref, torch.bfloat16),
+                                       ("f32", ref, torch.float32)):
+                out = model(x.to(dtype))
+                heat = (out[0] if isinstance(out, tuple) else out).permute(0, 3, 1, 2).float()
+                p[what] = extract_peaks(heat, WIDTH, HEIGHT, CL_PEAK_MIN)
+            seen = {k: v[..., 2] > 0 for k, v in p.items()}
+            both = seen["kernel"] & seen["f32"]
+            missed += int((seen["kernel"] ^ seen["f32"]).sum())
+            weak += int((~seen["kernel"] & ~seen["f32"]).sum())
+
+            def dist(a, b):
+                return torch.linalg.norm(p[a][..., :2] - p[b][..., :2], dim=-1)[both].tolist()
+
+            d_k += dist("kernel", "f32")
+            d_b += dist("bf16", "f32")
+            d_kb += dist("kernel", "bf16")
+    del ref
+    torch.cuda.empty_cache()
+    k, b, kb = (np.asarray(v or [0.0]) for v in (d_k, d_b, d_kb))
+    n = len(d_k) + missed
+    charged = int(((k > CL_PEAK_PX) & (b <= CL_PEAK_PX)).sum()) + missed
+    return {"detections": n, "seen_by_one_path": missed, "below_min": weak,
+            "charged_to_kernels": charged, "share_free": 1 - charged / max(n, 1),
+            "kernel_vs_f32": {"within_near": float((k <= CL_PEAK_NEAR).mean()),
+                              "within": float((k <= CL_PEAK_PX).mean()),
+                              "worst_px": float(k.max())},
+            "bf16_plain_vs_f32": {"within_near": float((b <= CL_PEAK_NEAR).mean()),
+                                  "within": float((b <= CL_PEAK_PX).mean()),
+                                  "worst_px": float(b.max())},
+            "kernel_vs_bf16_plain": {"within_near": float((kb <= CL_PEAK_NEAR).mean()),
+                                     "within": float((kb <= CL_PEAK_PX).mean()),
+                                     "worst_px": float(kb.max())}}
+
+
+def hr_step(torch, CL, model, batch):
+    """One f32 training step's loss, gradients and running statistics (on the host)."""
+    loss, _, _ = CL.detector_loss(model, *batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()), materialize_grads=True)
+    stats = {k: v.detach().float().cpu() for k, v in model.named_buffers() if "running" in k}
+    return float(loss), [g.float().cpu() for g in grads], stats
+
+
+def hr_rel(a, b):
+    """max |a - b| / max |b| (0 when both are 0)."""
+    m = float(b.abs().max())
+    return float((a - b).abs().max()) / m if m > 0 else float((a - b).abs().max())
+
+
+def unbiased_stats_fault(batch_norm):
+    """The fault of nn.BatchNorm2d's rule: the running variance moved by the unbiased
+    batch variance."""
+    def fn(x, bn, sink=None):
+        y = batch_norm(x, bn, sink)
+        if sink is not None and bn.training:
+            n = x.numel() // x.shape[-1]
+            b, mean, var = sink[-1]
+            sink[-1] = (b, mean, var * n / (n - 1))
+        return y
+    return fn
+
+
+def hr_train_cases(torch, CL, store, train_idx):
+    """(b)'s cases: (name, the model's initial weights, a batch rendered on the card) for
+    WASB and the table HRNet, with remat."""
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.pipeline.interface import init_weights
+
+    W, H = HR_STEP_RES
+    cases = []
+    for name, task in (("wasb", "ball"), ("hrnet", "table")):
+        base, _ = get_detector(name, task, train=True, remat=True)
+        init_weights(base, 3)
+        g = torch.Generator(device=DEVICE).manual_seed(5)
+        images, coords, vis = CL.sample_rendered(store, train_idx, HR_STEP_BATCH, task,
+                                                 HR_STEP_RES, g)
+        batch = CL.make_batch(images, coords, vis, 1 if task == "ball" else 13, (H, W),
+                              max(6.0 * W / CL.EVAL_W, 1.5))
+        cases.append((name, base, batch))
+    return cases
+
+
+def hr_cpu_reference(torch, CL, base, batch):
+    """The CPU's f32 step from the same weights and batch, without remat (remat changes no
+    value: tests/test_torch_hrnet_train.py), on a worker thread beside the card's work: at
+    the lowest priority (the thread's nice value, which its OpenMP workers inherit), so
+    that the host work the other phases time goes first."""
+    import copy
+    import threading
+
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    cpu = copy.deepcopy(base)
+    cpu.model.remat = False
+    host_batch = [b.cpu() for b in batch]
+    t = time.time()
+    return hr_step(torch, CL, cpu, host_batch), time.time() - t
+
+
+def run_hr_train_check(torch, CL, cases, cpu_refs):
+    """(b): one WASB and one table-HRNet training step on the card (remat) against the
+    CPU's (`cpu_refs`: futures of `hr_cpu_reference`), and the planted faults."""
+    import copy
+
+    from upliftingtabletennis_torch.models import batch_norm as BN
+    from upliftingtabletennis_torch.models import hrnet as HR
+
+    res = {}
+    for (name, base, batch), fut in zip(cases, cpu_refs):
+        t = time.time()
+        card = hr_step(torch, CL, copy.deepcopy(base).to(DEVICE), batch)
+        card_s = time.time() - t
+        with patched(HR, batch_norm=lambda x, bn, sink=None: BN.batch_norm(x, bn)):
+            twice = hr_step(torch, CL, copy.deepcopy(base).to(DEVICE), batch)
+        with patched(HR, batch_norm=unbiased_stats_fault(BN.batch_norm)):
+            unbiased = hr_step(torch, CL, copy.deepcopy(base).to(DEVICE), batch)
+        cpu, cpu_s = fut.result()
+        loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+        names = [n for n, _ in base.named_parameters()]
+        grad_errs = {n: hr_rel(a, b) for n, a, b in zip(names, card[1], cpu[1]) if b.any()}
+        zero_ok = all(not a.any() for a, b in zip(card[1], cpu[1]) if not b.any())
+        stats_err = max(hr_rel(card[2][k], cpu[2][k]) for k in cpu[2])
+        twice_err = max(hr_rel(twice[2][k], cpu[2][k]) for k in cpu[2])
+        unbiased_err = max(hr_rel(unbiased[2][k], cpu[2][k]) for k in cpu[2])
+        worst = max(grad_errs, key=grad_errs.get)
+        res[name] = {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel_err": loss_err,
+                     "grad_max_rel_err": grad_errs[worst], "grad_worst": worst,
+                     "grad_median_rel_err": statistics.median(grad_errs.values()),
+                     "stats_max_rel_err": stats_err, "fault_twice_stats_err": twice_err,
+                     "fault_unbiased_stats_err": unbiased_err, "card_step_s": card_s,
+                     "cpu_step_s": cpu_s}
+        log("closed_loop", what=f"train_step_{name}", loss_rel_err=f"{loss_err:.3g}",
+            grad_max_rel_err=f"{grad_errs[worst]:.3g}", grad_worst=worst,
+            stats_max_rel_err=f"{stats_err:.3g}", fault_twice=f"{twice_err:.3g}",
+            fault_unbiased=f"{unbiased_err:.3g}", cpu_step_s=f"{cpu_s:.1f}")
+        if (loss_err > HR_LOSS_RTOL or grad_errs[worst] > HR_GRAD_REL or not zero_ok
+                or stats_err > HR_STATS_REL):
+            raise AssertionError(f"{name}: the card's training step differs from the CPU's: "
+                                 f"{res[name]}")
+        if twice_err <= HR_STATS_REL:
+            raise AssertionError(f"{name}: the statistics moved twice pass the limit")
+        del card, cpu, twice, unbiased
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_hr_train_timing(torch, CL):
+    """ms per bf16 training step (forward, backward, clip, Adam, EMA) and peak memory of
+    WASB and the table HRNet, with and without remat, at HR_TIMED."""
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.pipeline.interface import init_weights
+    from upliftingtabletennis_torch.train.run_detection import apply_update, init_adam
+
+    out = {}
+    for name, task in (("wasb", "ball"), ("hrnet", "table")):
+        n_ch, n_pts = (9, 1) if task == "ball" else (3, 13)
+        for (W, H), B in HR_TIMED:
+            for remat in (True, False):
+                model, _ = get_detector(name, task, train=True, remat=remat)
+                init_weights(model, 3)
+                model.to(DEVICE)
+                params = list(model.parameters())
+                opt, ema = init_adam(params), [p.detach().clone() for p in params]
+                g = torch.Generator(device=DEVICE).manual_seed(0)
+                x = torch.randn(B, H, W, n_ch, generator=g, device=DEVICE).to(torch.bfloat16)
+                target = torch.rand(B, n_pts, H, W, generator=g, device=DEVICE)
+                coords = torch.rand(B, n_pts, 2, generator=g, device=DEVICE) * 100
+                vis = torch.ones(B, n_pts, device=DEVICE)
+
+                def step():
+                    loss, _, _ = CL.detector_loss(model, x, target, coords, vis)
+                    grads = torch.autograd.grad(loss, params, materialize_grads=True)
+                    apply_update(params, grads, opt, ema, 1e-4, 0.999)
+
+                step()  # warm-up: cuDNN's algorithms, the allocator
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(HR_TIMED_STEPS):
+                    t = time.time()
+                    step()
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.time() - t))
+                key = f"{name}_{W}x{H}_b{B}_{'remat' if remat else 'plain'}"
+                out[key] = {"ms": statistics.median(times), "ms_range": [min(times), max(times)],
+                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                log("closed_loop", what="train_step_timing", config=key,
+                    ms=f"{out[key]['ms']:.2f}", peak_mem_gb=f"{out[key]['peak_mem_gb']:.2f}")
+                del model, params, opt, ema, x, target
+                torch.cuda.empty_cache()
+    return out
+
+
+def start_closed_loop(torch):
+    """The closed_loop phase's store and (b)'s cases, with the CPU reference steps (about
+    50 s of CPU) started on a low-priority worker thread: `main` calls it after the build,
+    so that they run beside the earlier phases. Returns (store, cases, pool, futures)."""
+    from upliftingtabletennis_torch.data import synthetic as SYN
+    from upliftingtabletennis_torch.eval import closed_loop as CL
+
+    store = CL._load_store(None, device=DEVICE)
+    cases = hr_train_cases(torch, CL, SYN.store_to_device(store, DEVICE),
+                           SYN.split_indices(len(store), "train"))
+    pool = ThreadPoolExecutor(max_workers=1)
+    return store, cases, pool, [pool.submit(hr_cpu_reference, torch, CL, base, batch)
+                                for _, base, batch in cases]
+
+
+def run_closed_loop(torch, ops, pre=None):
+    """Phase closed_loop: (a) scoring with the committed trained weights, (b) the HRNet
+    training step, (c) the CLI. `pre`: what `start_closed_loop` returned, or None to
+    start it here."""
+    import glob
+    import math
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from upliftingtabletennis_torch.data import synthetic as SYN
+    from upliftingtabletennis_torch.data.image_transforms import host_downscale
+    from upliftingtabletennis_torch.eval import closed_loop as CL
+    from upliftingtabletennis_torch.models.segformer import MiTBlock
+    from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
+    from upliftingtabletennis_torch.train import run_detection
+    from upliftingtabletennis_torch.utils.checkpoint import load_checkpoint
+
+    res = {}
+    t0 = time.time()
+    store, cases, pool, cpu_refs = pre or start_closed_loop(torch)
+    store_d = SYN.store_to_device(store, DEVICE)
+    test_idx = SYN.split_indices(len(store), "test")
+    pipe = CL._pipeline_from(cl_weights("ball_detector"), cl_weights("table_detector"),
+                             cl_weights("uplifting"), (960, 544), device=DEVICE)
+    log("closed_loop", store=len(store), setup_s=f"{time.time() - t0:.1f}",
+        ball=pipe.ball_detector.model_name, table=pipe.table_detector.model_name,
+        res=list(pipe.ball_detector.resolution))
+
+    # (a) the scoring: one rally to warm up, then CL_RALLIES counted
+    with tempfile.TemporaryDirectory() as d:
+        args = types.SimpleNamespace(n_eval=1, uplifting_checkpoint=cl_weights("uplifting"),
+                                     render_res=(960, 544), skip_physics_fit=True,
+                                     physfit_min_rallies=8, out=d)
+        CL.evaluate_pipeline(store, None, args, DEVICE, pipe=pipe)
+        args.n_eval = CL_RALLIES + 1  # a rally shorter than 8 frames is skipped
+        for k in ops.ALL:
+            getattr(ops, k).launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        score = CL.evaluate_pipeline(store, None, args, DEVICE, pipe=pipe)
+        secs = time.time() - t
+        launches = {k: getattr(ops, k).launches for k in ops.ALL}
+        diag = json.load(open(os.path.join(d, "rally_diag.json")))
+    pieces = sum(math.ceil(r["T"] / HR_CHUNK) for r in diag)
+    blocks = sum(isinstance(m, MiTBlock) for m in pipe.table_detector.model.modules())
+    want = {k: 0 for k in ops.ALL}
+    want.update(fused_attention_block=blocks * pieces, fused_ln_ffn=blocks * pieces,
+                conv3x3_bias_act=RALLY_PER_PIECE["conv3x3_bias_act"] // 2 * pieces,
+                conv1x1_bias_act=RALLY_PER_PIECE["conv1x1_bias_act"] // 2 * pieces)
+    if launches != want:
+        raise AssertionError(f"closed-loop scoring launches {launches}, expected {want}")
+    res.update(score=score, launches=launches, rallies=len(diag), pieces=pieces,
+               s_per_rally=secs / max(len(diag), 1), jax=CL_JAX, gates=CL_GATES)
+    beside = {k: [score.get(k), CL_JAX[k]] for k in CL_JAX if k in score}
+    log("closed_loop", rallies=len(diag), frames=int(sum(r["T"] for r in diag)),
+        s_per_rally=f"{res['s_per_rally']:.3f}", launches=json.dumps(launches),
+        port_vs_jax=json.dumps(beside))
+    failed = {k: score.get(k) for k, lim in CL_GATES.items()
+              if score.get(k) is None or not score[k] <= lim}
+    if failed or score["n_rallies"] < CL_RALLIES:
+        raise AssertionError(f"closed-loop scores over their gates: {failed} (gates {CL_GATES}), "
+                             f"{score['n_rallies']} rallies")
+
+    # the kernel path's peaks against the f32 plain path's on the frames of a few rallies
+    triplets, singles = [], []
+    for j, ti in enumerate(test_idx[:CL_PEAK_RALLIES]):
+        frames = CL.render_held_out(store_d, ti, j)[2].cpu().numpy()
+        small = torch.from_numpy(host_downscale(frames, pipe.ball_detector.resolution))
+        triplets.append(torch.cat([small[:-2], small[1:-1], small[2:]], dim=-1))
+        singles.append(small)
+    peaks = {}
+    for what, det, items in (("ball", pipe.ball_detector, torch.cat(triplets)),
+                             ("table", pipe.table_detector, torch.cat(singles))):
+        peaks[what] = cl_peak_check(torch, det, items.to(DEVICE))
+        if peaks[what]["share_free"] < CL_PEAK_SHARE:
+            raise AssertionError(f"{what}: the kernel path's peaks against the f32 plain "
+                                 f"path's: {peaks[what]}")
+    res["peaks_vs_plain"] = peaks
+    # render_frames alone: ms per 1080p frame of a whole padded rally (50 frames)
+    from upliftingtabletennis_torch.data.render_rally import render_frames
+
+    ball = torch.rand(50, 2, device=DEVICE) * torch.tensor([1920.0, 1080.0], device=DEVICE)
+    table = torch.rand(13, 2, device=DEVICE) * torch.tensor([1920.0, 1080.0], device=DEVICE)
+    ctx = torch.rand(3, 4, 2, device=DEVICE) * torch.tensor([1920.0, 1080.0], device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    res["render_ms_per_frame"] = time_ms(torch, lambda: render_frames(
+        ball, torch.ones(50, device=DEVICE), table, 1080, 1920, ctx, generator=gen),
+        iters=5, warmup=2) / 50
+    log("closed_loop", peaks_vs_plain=json.dumps(peaks), tol_px=CL_PEAK_PX,
+        near_px=CL_PEAK_NEAR, min_share=CL_PEAK_SHARE, render_ms_per_frame=f"{res['render_ms_per_frame']:.3f}")
+    del pipe, triplets, singles
+    torch.cuda.empty_cache()
+
+    res["train_step_timing"] = run_hr_train_timing(torch, CL)
+
+    # (c) the CLI: a few steps per task (WASB, the table HRNet), 2 rallies
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        cli = CL.main(["--out", d, "--train_steps", str(CL_CLI_STEPS), "--eval_every", "2",
+                       "--render_res", *(str(v) for v in CL_CLI_RES),
+                       "--n_eval", "2", "--uplifting_checkpoint", cl_weights("uplifting"),
+                       "--physfit_starts", "4", "--physfit_adam_steps", "20",
+                       "--physfit_lm_steps", "2", "--device", DEVICE])
+        cli_s = time.time() - t
+        frame = synthetic_frames(3)
+        for task, cls in (("ball", BallDetector), ("table", TableDetector)):
+            path = os.path.join(d, f"{task}_detector")
+            _, _, info = load_checkpoint(path)
+            det = cls(info["model"], path, 2, resolution=tuple(info["render_res"]),
+                      device=DEVICE)
+            got = (det.predict([tuple(frame)])[0] if task == "ball" else
+                   det.predict(list(frame))[0])
+            if not np.isfinite(got).all():
+                raise AssertionError(f"the CLI's {task} checkpoint predicts {got}")
+        # the HRNet trainers' CLI on a tiny TTHQ layout: 2 steps each, checkpoints loaded
+        tiny_tthq(d)
+        t = time.time()
+        for task, model, cls in (("ball", "wasb", BallDetector),
+                                 ("table", "hrnet", TableDetector)):
+            run_detection.main(["--task", task, "--model", model, "--data_root", d,
+                                "--batch_size", "2", "--num_epochs", "1",
+                                "--val_iterations", "2", "--max_steps", "2",
+                                "--resolution", "320", "192", "--eval_resolution", "640", "360",
+                                "--save_dir", os.path.join(d, "ckpt"),
+                                "--logdir", os.path.join(d, "runs"), "--device", DEVICE])
+            (path,) = glob.glob(os.path.join(d, "ckpt", f"{task}_{model}_*", "model.pt"))
+            det = cls(model, path, 2, resolution=(320, 192), device=DEVICE)
+            got = (det.predict([tuple(frame)])[0] if task == "ball" else
+                   det.predict(list(frame))[0])
+            if not np.isfinite(got).all():
+                raise AssertionError(f"run_detection's {model} checkpoint predicts {got}")
+        detection_cli_s = time.time() - t
+    # (b) the card's training step against the CPU's, whose reference ran meanwhile
+    res["train_step"] = run_hr_train_check(torch, CL, cases, cpu_refs)
+    pool.shutdown()
+    if cli["n_rallies"] != 2:
+        raise AssertionError(f"the CLI scored {cli['n_rallies']} rallies")
+    res["cli"] = {"seconds": cli_s, "n_rallies": cli["n_rallies"],
+                  "ball_detection_px_median": cli["ball_detection_px_median"],
+                  "run_detection_s": detection_cli_s}
+    log("closed_loop", cli_s=f"{cli_s:.1f}", cli_rallies=cli["n_rallies"],
+        run_detection_s=f"{detection_cli_s:.1f}", phase_s=f"{time.time() - t0:.1f}")
+    return res
+
+
+
 def profile_calls(torch, fn, label, categories=None, calls=1, quiet=False):
     """Device time by kernel over `calls` warm calls of `fn` (torch.profiler), the idle
     share, the kernel launches per call, and the Python lines that make the host wait for
@@ -3473,6 +3921,32 @@ def s1_summaries(physics_res, datagen_res, fit_res):
     ]
 
 
+def kernel_ops():
+    """The wrappers whose launch counts the main path is held to."""
+    import upliftingtabletennis_torch.ops.dwconv as k4
+    import upliftingtabletennis_torch.ops.flash_attention as k3
+    import upliftingtabletennis_torch.ops.fused_attention as k1
+    import upliftingtabletennis_torch.ops.fused_conv as k5
+    import upliftingtabletennis_torch.ops.fused_ffn as k2
+    import upliftingtabletennis_torch.ops.nms as k6
+
+    class Ops:
+        fused_attention_block = k1.fused_attention_block
+        fused_ln_ffn = k2.fused_ln_ffn
+        conv3x3_bias_act = k5.conv3x3_bias_act
+        conv1x1_bias_act = k5.conv1x1_bias_act
+        flash_cross_attention = k3.flash_cross_attention
+        overlap_words = k6.overlap_words  # K6's two kernels: 2 launches per nms_mask call
+        resolve_words = k6.resolve_words
+        depthwise_conv3x3 = k4.depthwise_conv3x3
+        dwconv3x3_backward = k4.dwconv3x3_backward  # 2 launches per call: the pass and its sum
+        ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act",
+               "flash_cross_attention", "overlap_words", "resolve_words", "depthwise_conv3x3",
+               "dwconv3x3_backward")
+
+    return Ops
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3490,12 +3964,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    import upliftingtabletennis_torch.ops.dwconv as k4
-    import upliftingtabletennis_torch.ops.flash_attention as k3
-    import upliftingtabletennis_torch.ops.fused_attention as k1
-    import upliftingtabletennis_torch.ops.fused_conv as k5
-    import upliftingtabletennis_torch.ops.fused_ffn as k2
-    import upliftingtabletennis_torch.ops.nms as k6
     from upliftingtabletennis_torch.ops import _build
 
     # the f32 references run in full f32 (no TF32 in matmuls or cuDNN convolutions)
@@ -3523,20 +3991,9 @@ def main() -> int:
     log("build", seconds=f"{time.time() - t:.1f}", compiled=sorted(reports),
         sass=json.dumps(sass_counts(_build, ("flash_attention.cu", "fused_conv.cu"))))
 
-    class Ops:  # the wrappers whose launch counts the main path is held to
-        fused_attention_block = k1.fused_attention_block
-        fused_ln_ffn = k2.fused_ln_ffn
-        conv3x3_bias_act = k5.conv3x3_bias_act
-        conv1x1_bias_act = k5.conv1x1_bias_act
-        flash_cross_attention = k3.flash_cross_attention
-        overlap_words = k6.overlap_words  # K6's two kernels: 2 launches per nms_mask call
-        resolve_words = k6.resolve_words
-        depthwise_conv3x3 = k4.depthwise_conv3x3
-        dwconv3x3_backward = k4.dwconv3x3_backward  # 2 launches per call: the pass and its sum
-        ALL = ("fused_attention_block", "fused_ln_ffn", "conv3x3_bias_act", "conv1x1_bias_act",
-               "flash_cross_attention", "overlap_words", "resolve_words", "depthwise_conv3x3",
-               "dwconv3x3_backward")
-
+    Ops = kernel_ops()
+    # the closed_loop phase's CPU reference steps run beside the phases until it
+    closed_pre = start_closed_loop(torch)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen, profile=opts.profile)
     k2_entries = run_k2(torch, F, Ops, gen, profile=opts.profile)
@@ -3571,7 +4028,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     uplift_res = run_uplift_train(torch, profile=opts.profile)
 
-    # 24. hygiene
+    torch.cuda.empty_cache()
+    closed_res = run_closed_loop(torch, Ops, closed_pre)
+
+    # 25. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -3661,6 +4121,8 @@ def main() -> int:
     for entry in kernels:  # the rally's main path: K1, K2, K5a and K5b over 64 frames
         if rally_res["launches"].get(entry["name"]):
             entry["launches_rally"] = rally_res["launches"][entry["name"]]
+        if closed_res["launches"].get(entry["name"]):  # b0 and WASB at 960x544
+            entry["launches_closed_loop"] = closed_res["launches"][entry["name"]]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:
@@ -3670,7 +4132,8 @@ def main() -> int:
                        "vitpose": vit_res, "k4": k4_entries, "k4_backward": k4_bwd_entries,
                        "train": train_res, "rally": rally_res, "uplifting": uplifting_res,
                        "calib": calib_res, "physics": physics_res, "datagen": datagen_res,
-                       "fit": fit_res, "uplift_train": uplift_res, "total_s": total}, f,
+                       "fit": fit_res, "uplift_train": uplift_res,
+                       "closed_loop": closed_res, "total_s": total}, f,
                       indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -231,9 +231,9 @@ def test_cli_debug_nans_turns_on_anomaly_detection(fake_tthq, tmp_path, flag):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model", "wasb"], "item 8"), (["--data", "blurball"], "item 10"),
-    (["--dp", "2"], "item 8"), (["--torch_init", "x.pth"], "item 8"),
-    (["--hf_backbone", "x.pt"], "item 8"),
+    (["--model", "vitpose"], "item 5"), (["--data", "blurball"], "item 7"),
+    (["--dp", "2"], "item 5"), (["--torch_init", "x.pth"], "item 5"),
+    (["--hf_backbone", "x.pt"], "item 5"),
 ], ids=["model", "blurball", "dp", "torch_init", "hf_backbone"])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     with pytest.raises(ValueError, match=item):

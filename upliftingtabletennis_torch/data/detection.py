@@ -10,7 +10,7 @@ Layout:
 * table: `table_detection.csv` with 13 keypoints per frame (point_<k>_x/_y/_flag).
 Videos 1, 3 and 10 are the val + test pool, shuffled with numpy's RandomState(0) and
 split in halves. Frames are decoded by `data/png.py` (no cv2). BlurBall waits for the
-readers slice (ROADMAP queue 1 item 10).
+readers slice (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -23,7 +23,7 @@ DETECTOR_RESOLUTIONS = {
 def get_detector(name: str, task: str = "ball", in_frames: int = None,
                  classify_invisible: bool = False, head_style: str = "nvlabs",
                  decoder_dim: int = 0, kernels: bool = True, resolution=None,
-                 train: bool = False):
+                 train: bool = False, remat: bool = False):
     """Build a detector. Returns (model, (W, H) input resolution).
 
     task 'ball': 3-frame input, 1 heatmap channel; 'table': 1 frame, 13 channels.
@@ -33,9 +33,10 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     head_style, decoder_dim) apply to SegFormer only. kernels=False runs the
     plain versions of the model's kernels, and ViTPose's attention in its einsum
     form in place of `F.scaled_dot_product_attention` (for comparisons only).
-    train=True builds a SegFormer in training mode (its head's BatchNorms on batch
-    statistics); the JAX factory's `remat` has no SegFormer counterpart (it ignores
-    it there). The other families' trainers are not ported yet.
+    train=True builds the model in training mode: a SegFormer's head BatchNorms, and
+    every BatchNorm of WASB and the table HRNet, on batch statistics. remat (the HRNet
+    family, as in the JAX factory) checkpoints each HRNet block; SegFormer ignores it,
+    as the JAX factory does. ViTPose's trainer is not ported yet.
     """
     if task not in ("ball", "table"):
         raise ValueError(f"unknown task {task!r}")
@@ -45,9 +46,9 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     out_channels = 1 if task == "ball" else 13
     frames = in_frames if in_frames is not None else (3 if task == "ball" else 1)
     is_segformer = name in ("segformerpp_b0", "segformerpp_b2")
-    if train and not is_segformer:
-        raise ValueError(f"training {name!r} is not ported yet (ROADMAP queue 1 item 8: the "
-                         f"HRNet and ViTPose trainers)")
+    if train and name == "vitpose":
+        raise ValueError("training 'vitpose' is not ported yet (ROADMAP queue 1 item 5: the "
+                         "ViTPose trainer, with its head BatchNorms and models/losses.py)")
     if is_segformer:
         model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
                              head_style=head_style, decoder_dim=decoder_dim, kernels=kernels,
@@ -57,11 +58,11 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     elif name == "wasb":
         if task != "ball":
             raise ValueError("wasb is a ball detector (task='ball')")
-        model = WASBNet(frames, kernels=kernels)
+        model = WASBNet(frames, kernels=kernels, train=train, remat=remat)
     elif name == "hrnet":
         if task != "table":
             raise ValueError("hrnet is a table detector (task='table')")
-        model = TableHRNet(13, kernels=kernels)
+        model = TableHRNet(13, kernels=kernels, train=train, remat=remat)
     else:
         raise ValueError(f"unknown detector {name!r}")
     return model, res

@@ -10,12 +10,14 @@ packing. Modules are named after the flax tree (`model.conv1`, `bn1`,
 `utils/convert.py:flax_to_torch` is a path walk and a converted checkpoint
 loads with `strict=True`. Inputs and outputs are NHWC like the JAX model.
 
-Inference only, BatchNorm on its running statistics (eps 1e-5, the flax
-default). The weights stay f32. The first forward folds every BatchNorm into
+In eval mode (the default) BatchNorm runs on its running statistics (eps 1e-5, the
+flax default). The weights stay f32. The first forward folds every BatchNorm into
 its conv, in f32, then casts to the input's dtype (as `hrnet_packed._P.conv_bn`
 does) and, on the kernel path on CUDA, keeps only the kernel's packed
-operands; it folds again only when the device or dtype of its input changes or
-`load_state_dict` brings new weights. Each conv then runs as:
+operands; it folds again when the device or dtype of its input changes,
+`load_state_dict` brings new weights, or the model leaves training mode
+(`train(False)`: an optimizer step changes the weights in place). Each conv then
+runs as:
 
 * stride-1 3x3 -> K5a `conv3x3_bias_act`, stride-1 1x1 -> K5b
   `conv1x1_bias_act` (`ops/fused_conv.py`): bias, ReLU and the residual of a
@@ -26,6 +28,19 @@ operands; it folds again only when the device or dtype of its input changes or
 * the fuse sums, their ReLU and the nearest-neighbour upsampling -> tensor ops.
 
 One forward launches K5a 40 times and K5b 14 times; 18 convs are stride 2.
+
+In training mode (`train=True` or `.train()`) the graph is the JAX model's with
+`train=True`: each conv unfolded (`F.conv2d`, cuDNN on the card; K5 has no backward
+and raises under grad), then BatchNorm on the batch's statistics by flax's rule
+(`models/batch_norm.py`: biased variance, running statistics at momentum 0.9), then
+the residual and ReLU. `remat=True` checkpoints each BasicBlock and Bottleneck
+(`torch.utils.checkpoint`, non-reentrant), as the JAX model's `nn.remat` does; the
+blocks hand their batch statistics out, and the running statistics move once, after
+the forward, so the recompute in the backward cannot move them again. On the card the
+trainers run the forward in bf16 (the convolutions and the activations), with the
+BatchNorm statistics and the loss in f32 and the parameters and Adam in f32, the
+convention of the SegFormer trainer.
+
 `kernels=False` builds the same graph with the plain versions of K5 (for
 comparisons on the card).
 """
@@ -36,7 +51,9 @@ from typing import Any, Dict, NamedTuple, Optional, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from upliftingtabletennis_torch.models.batch_norm import Stats, batch_norm, update_running_stats
 from upliftingtabletennis_torch.ops.fused_conv import (Packed, conv1x1_bias_act,
                                                       conv1x1_bias_act_plain, conv3x3_bias_act,
                                                       conv3x3_bias_act_plain, pack)
@@ -100,6 +117,9 @@ class _Runner:
         self.k3 = conv3x3_bias_act if kernels else conv3x3_bias_act_plain
         self.k1 = conv1x1_bias_act if kernels else conv1x1_bias_act_plain
 
+    def block(self, blk: nn.Module, x):
+        return blk(x, self)
+
     def __call__(self, conv: nn.Conv2d, x, relu: bool = False, residual=None):
         f: Folded = conv.folded
         if f.stride == 1:
@@ -107,6 +127,43 @@ class _Runner:
             return fn(x, f.weight, f.bias, residual, relu=relu)
         y = F.conv2d(x.permute(0, 3, 1, 2), f.weight, f.bias, stride=f.stride,
                      padding=f.weight.shape[-1] // 2).permute(0, 2, 3, 1)
+        return torch.relu(y) if relu else y
+
+
+class _TrainRunner:
+    """Runs unfolded convs in training mode: F.conv2d, flax's BatchNorm on the batch's
+    statistics (collected in `stats`, applied by the caller), the residual, ReLU.
+    remat: each block under `torch.utils.checkpoint`."""
+
+    def __init__(self, remat: bool):
+        self.remat = remat
+        self.stats: Stats = []
+
+    def block(self, blk: nn.Module, x):
+        if not self.remat:
+            return blk(x, self)
+        bns = []
+
+        def body(t):
+            sub = _TrainRunner(False)
+            y = blk(t, sub)
+            if not bns:  # the recompute in the backward finds them recorded
+                bns.extend(bn for bn, _, _ in sub.stats)
+            return y, [s for _, mean, var in sub.stats for s in (mean, var)]
+
+        y, flat = checkpoint(body, x, use_reentrant=False)
+        self.stats += [(bn, flat[2 * i], flat[2 * i + 1]) for i, bn in enumerate(bns)]
+        return y
+
+    def __call__(self, conv: nn.Conv2d, x, relu: bool = False, residual=None):
+        bn = conv.bn_partner
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                     None if conv.bias is None else conv.bias.to(x.dtype),
+                     stride=conv.stride, padding=conv.padding).permute(0, 2, 3, 1)
+        if bn is not None:
+            y = batch_norm(y, bn, self.stats)
+        if residual is not None:
+            y = y + residual
         return torch.relu(y) if relu else y
 
 
@@ -183,7 +240,7 @@ class HighResolutionModule(nn.Module):
         for i in range(self.num_branches):
             y = xs[i]
             for b in range(self.num_blocks[i]):
-                y = getattr(self, f"branches_{i}_{b}")(y, run)
+                y = run.block(getattr(self, f"branches_{i}_{b}"), y)
             ys.append(y)
         if self.num_branches == 1:
             return ys
@@ -212,10 +269,11 @@ class HRNet(nn.Module):
     forward(x (B, H, W, 3 * in_frames)) -> (heatmaps (B, H', W', out_channels), branch
     features); H' = H with the stem strides (1, 1)."""
 
-    def __init__(self, out_channels: int = 3, in_frames: int = 1, cfg=None, kernels: bool = True):
+    def __init__(self, out_channels: int = 3, in_frames: int = 1, cfg=None, kernels: bool = True,
+                 remat: bool = False):
         super().__init__()
         cfg = cfg or WASB_CFG
-        self.cfg, self.kernels = cfg, kernels
+        self.cfg, self.kernels, self.remat = cfg, kernels, remat
         stem, (s0, s1) = cfg["stem_inplanes"], cfg["stem_strides"]
         self.conv1, self.bn1 = _conv(3 * in_frames, stem, 3, s0), _bn(stem)
         self.conv2, self.bn2 = _conv(stem, stem, 3, s1), _bn(stem)
@@ -256,12 +314,23 @@ class HRNet(nn.Module):
             prev = cur
         k = cfg["final_conv_kernel"]
         self.final_layers_0 = _conv(prev[0], out_channels, k, bias=True)
+        for parent in self.modules():  # each conv's BatchNorm, outside the module tree
+            for name, conv in parent.named_children():
+                if isinstance(conv, nn.Conv2d):
+                    object.__setattr__(conv, "bn_partner", _bn_of(parent, name))
         self._folded_key = None
         self.register_load_state_dict_post_hook(HRNet._unfold)
 
     @staticmethod
     def _unfold(module, incompatible_keys):
         module._folded_key = None
+
+    def train(self, mode: bool = True):
+        """Switch the mode; leaving training mode drops the folded weights (an optimizer
+        step changed the weights in place)."""
+        if not mode:
+            self._folded_key = None
+        return super().train(mode)
 
     @torch.no_grad()
     def _fold(self, dtype: torch.dtype) -> None:
@@ -274,7 +343,7 @@ class HRNet(nn.Module):
                 if not isinstance(conv, nn.Conv2d):
                     continue
                 w = conv.weight.float().permute(2, 3, 1, 0)  # HWIO, as the flax kernel
-                bn = _bn_of(parent, name)
+                bn = conv.bn_partner
                 if bn is not None:
                     w, b = fold_bn(w, bn.weight.float(), bn.bias.float(),
                                    bn.running_mean.float(), bn.running_var.float(), bn.eps)
@@ -293,13 +362,21 @@ class HRNet(nn.Module):
         self._folded_key = (device, dtype)
 
     def forward(self, x):
+        if self.training:
+            run = _TrainRunner(self.remat)
+            out = self._graph(x, run)
+            for bn, mean, var in run.stats:
+                update_running_stats(bn, mean, var)
+            return out
         if self._folded_key != (x.device, x.dtype):
             self._fold(x.dtype)
-        run = _Runner(self.kernels)
+        return self._graph(x, _Runner(self.kernels))
+
+    def _graph(self, x, run):
         y = run(self.conv1, x, relu=True)
         y = run(self.conv2, y, relu=True)
         for b in range(self.cfg["stage1"]["num_blocks"][0]):
-            y = getattr(self, f"layer1_{b}")(y, run)
+            y = run.block(getattr(self, f"layer1_{b}"), y)
         ys = [y]
         for si, plan in zip((2, 3, 4), self.stage_branches):
             xs = []
@@ -323,9 +400,12 @@ class WASBNet(nn.Module):
 
     FOLDS_BATCH_NORM = True  # keep the weights f32: forward folds them into its dtype
 
-    def __init__(self, in_frames: int = 3, kernels: bool = True):
+    def __init__(self, in_frames: int = 3, kernels: bool = True, train: bool = False,
+                 remat: bool = False):
         super().__init__()
-        self.model = HRNet(3, in_frames, kernels=kernels)
+        self.model = HRNet(3, in_frames, kernels=kernels, remat=remat)
+        self.out_channels = 1
+        self.train(train)
 
     def forward(self, x):
         heat, _ = self.model(x)
@@ -337,9 +417,12 @@ class TableHRNet(nn.Module):
 
     FOLDS_BATCH_NORM = True
 
-    def __init__(self, num_keypoints: int = 13, kernels: bool = True):
+    def __init__(self, num_keypoints: int = 13, kernels: bool = True, train: bool = False,
+                 remat: bool = False):
         super().__init__()
-        self.model = HRNet(num_keypoints, 1, kernels=kernels)
+        self.model = HRNet(num_keypoints, 1, kernels=kernels, remat=remat)
+        self.out_channels = num_keypoints
+        self.train(train)
 
     def forward(self, x):
         return self.model(x)[0]

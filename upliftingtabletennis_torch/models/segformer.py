@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from upliftingtabletennis_torch.models.batch_norm import batch_norm
 from upliftingtabletennis_torch.ops.flash_attention import (cross_attention_plain,
                                                            flash_cross_attention)
 from upliftingtabletennis_torch.ops.fused_attention import (attention_block_plain,
@@ -215,30 +216,6 @@ def _resize_bilinear(t, hw):
     return y.permute(0, 2, 3, 1)
 
 
-FLAX_BN_MOMENTUM = 0.9  # flax BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 stat
-
-
-def _batch_norm(x, bn: nn.BatchNorm2d):
-    """BatchNorm over the last (channel) axis of an NHWC tensor, in f32, rounded to
-    x.dtype. Inference (bn.training False): the running statistics. Training: the
-    batch's mean and biased variance max(0, E[x²] - E[x]²), and the running
-    statistics move as flax's do (not as nn.BatchNorm2d's: unbiased, momentum 0.1)."""
-    xf = x.float()
-    if bn.training:
-        dims = tuple(range(x.ndim - 1))
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = FLAX_BN_MOMENTUM
-            bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
-            bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
-            bn.num_batches_tracked += 1
-        y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight.float())
-        return (y + bn.bias.float()).to(x.dtype)
-    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return (xf * scale + (bn.bias.float() - bn.running_mean.float() * scale)).to(x.dtype)
-
-
 class SegFormerHead(nn.Module):
     """All-MLP decode head with the JAX model's per-stage projection restructure.
 
@@ -272,7 +249,7 @@ class SegFormerHead(nn.Module):
             acc = t if acc is None else acc + t
             b = lin.bias.to(dt) @ blk
             bias = b if bias is None else bias + b
-        x = torch.relu(_batch_norm(acc + bias, self.fuse_bn))
+        x = torch.relu(batch_norm(acc + bias, self.fuse_bn))
         return x @ self.conv_seg.weight[:, :, 0, 0].t().to(dt) + self.conv_seg.bias.to(dt)
 
 
@@ -299,12 +276,12 @@ class MMSegHead(nn.Module):
         acc = None
         for i, f in enumerate(feats):
             t = f @ getattr(self, f"conv_{i}").weight[:, :, 0, 0].t().to(dt)
-            t = torch.relu(_batch_norm(t, getattr(self, f"bn_{i}")))
+            t = torch.relu(batch_norm(t, getattr(self, f"bn_{i}")))
             t = t @ wf[i * D:(i + 1) * D]
             if i > 0:
                 t = _resize_bilinear(t, target_hw)
             acc = t if acc is None else acc + t
-        x = torch.relu(_batch_norm(acc, self.fusion_bn))
+        x = torch.relu(batch_norm(acc, self.fusion_bn))
         return x @ self.conv_seg.weight[:, :, 0, 0].t().to(dt) + self.conv_seg.bias.to(dt)
 
 

@@ -248,8 +248,9 @@ def _run(wrapper, ks, x, w, b, residual, relu):
         return plain(x, w, b, residual, relu=relu)
     operands = (x, residual, *((packed.weight, packed.bias) if packed is not None else (w, b)))
     if _build.needs_grad(*operands):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet (the HRNet trainer, "
-                           f"ROADMAP queue 1 item 8); call it under torch.no_grad()")
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward (the HRNet trainers run "
+                           f"their convolutions unfolded through F.conv2d); call it under "
+                           f"torch.no_grad()")
     return _launch(wrapper, x, pack(w, b) if packed is None else packed, residual, relu)
 
 

@@ -327,13 +327,17 @@ class TableTennisPipeline:
         (chunk,) local table frames, None for a ball-only piece. -> peaks (chunk, C, 3) of
         each detector (ball main, ball aux[, table main, table aux]), on the device."""
         triplets = torch.cat([window[idx3[0]], window[idx3[1]], window[idx3[2]]], dim=-1)
-        outs = [self.ball_detector.peaks_on_device(triplets),
-                self.ball_detector_aux.peaks_on_device(triplets)]
+        outs = self._pair(self.ball_detector, self.ball_detector_aux, triplets)
         if table_idx is not None:
-            tables = window[table_idx]
-            outs += [self.table_detector.peaks_on_device(tables),
-                     self.table_detector_aux.peaks_on_device(tables)]
+            outs += self._pair(self.table_detector, self.table_detector_aux, window[table_idx])
         return outs
+
+    @staticmethod
+    def _pair(main, aux, images):
+        """Both detectors' peaks; one forward when main and aux are one detector (the
+        closed loop's pipeline)."""
+        peaks = main.peaks_on_device(images)
+        return [peaks, peaks if aux is main else aux.peaks_on_device(images)]
 
     def _rally_peaks(self, images, table_stride: int = 1, pixel_format: str = "rgb",
                      upload_res="model"):

@@ -1,4 +1,4 @@
-"""Detector trainer (ball and table) for the SegFormer models, CLI.
+"""Detector trainer (ball and table) for the SegFormer and HRNet models, CLI.
 
 Port of `upliftingtabletennis_tpu/train/run_detection.py` (`main`, `:29-413`):
 
@@ -7,21 +7,24 @@ Port of `upliftingtabletennis_tpu/train/run_detection.py` (`main`, `:29-413`):
 
 The same recipe: the augmentation of `data/image_transforms.py`, Gaussian targets at
 the 1920x1080 evaluation resolution, the weighted MSE on the logits upscaled
-bilinearly to it, the batch statistics of the head's BatchNorms, optax's
+bilinearly to it, the batch statistics of the BatchNorms (a SegFormer's head; every
+BatchNorm of WASB and the table HRNet, built with `remat` as the JAX trainer builds
+them), optax's
 `clip_by_global_norm(5.0)` then Adam (lr 1e-3), an EMA of the parameters (0.999),
 validation of the EMA weights with the current batch statistics every
 `--val_iterations` steps by PCK at 2, 5, 10 and 20 px, and a checkpoint of the best
 PCK@5. The step is factored (`loss_fn`, `apply_update`, `infer`, `validate`) so each
 piece can be held against the JAX trainer.
 
-Parameters and Adam's state are f32, as in JAX. On the card the forward runs in bf16
-(the kernels' type) through the differentiable kernels K1 and K2, whose backward
-recomputes through K4; the loss is f32. Random draws come from a `torch.Generator`
+Parameters and Adam's state are f32, as in JAX. On the card the forward runs in bf16:
+a SegFormer through the differentiable kernels K1 and K2, whose backward recomputes
+through K4; an HRNet through cuDNN convolutions (unfolded, BatchNorm statistics in f32);
+the loss is f32. Validation runs the inference model (an HRNet folded, through K5). Random draws come from a `torch.Generator`
 seeded with `--seed`, not from `jax.random`. Logs go to stdout and, one JSON line per
 validation, to `<logdir>/<identifier>/metrics.jsonl`.
 
-Not ported yet (each raises, naming the ROADMAP item that ports it): models other than
-segformerpp_b0/b2, `--data blurball`, `--dp`, `--torch_init` and `--hf_backbone`.
+Not ported yet (each raises, naming the ROADMAP item that ports it): `--model vitpose`,
+`--data blurball`, `--dp`, `--torch_init` and `--hf_backbone`.
 """
 from __future__ import annotations
 
@@ -45,21 +48,32 @@ from upliftingtabletennis_torch.ops.peak import extract_peaks
 from upliftingtabletennis_torch.pipeline.interface import init_weights
 from upliftingtabletennis_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
-__all__ = ["main", "loss_fn", "init_adam", "apply_update", "eval_coords", "train_step",
+__all__ = ["main", "heatmap", "n_points", "loss_fn", "init_adam", "apply_update", "eval_coords", "train_step",
            "infer", "validate", "TRAINABLE_MODELS"]
 
-TRAINABLE_MODELS = ("segformerpp_b0", "segformerpp_b2")
+TRAINABLE_MODELS = ("segformerpp_b0", "segformerpp_b2", "wasb", "hrnet")
 CLIP_NORM = 5.0
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 PCK_TOLERANCES = (2, 5, 10, 20)
+
+
+def heatmap(out) -> torch.Tensor:
+    """A detector's heatmap (B, h, w, P): SegFormer and WASB return (heatmap, extra), the
+    table HRNet the heatmap alone."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def n_points(model) -> int:
+    """The heatmap channels of a detector."""
+    head = getattr(model, "decode_head", None)
+    return head.conv_seg.out_channels if head is not None else model.out_channels
 
 
 def loss_fn(model, imgs, target):
     """Forward of a model in training mode, logits upscaled (bilinear, half-pixel) to the
     target's resolution in f32, weighted MSE. imgs (B, H, W, C_in); target (B, P, EH, EW).
     Returns (loss, the model's batch statistics, updated by this forward)."""
-    heat, _ = model(imgs)
-    logits = heat.permute(0, 3, 1, 2).float()
+    logits = heatmap(model(imgs)).permute(0, 3, 1, 2).float()
     logits = F.interpolate(logits, size=tuple(target.shape[-2:]), mode="bilinear",
                            align_corners=False)
     return M.weighted_mse_loss(logits, target), dict(model.named_buffers())
@@ -109,12 +123,12 @@ def train_step(model, params, opt_state, ema, gen, images, coords, vis, model_wh
     the evaluation resolution, `loss_fn` with the forward in `dtype`, the gradients of
     `params`, `apply_update`. Returns the loss (a device scalar)."""
     imgs, c_model, v = augment_detection_batch(gen, images, coords, vis, model_wh, aug_cfg, True)
-    n_points = model.decode_head.conv_seg.out_channels
+    P = n_points(model)
     c_eval = eval_coords(c_model, model_wh, eval_wh)
-    target = M.render_gaussian_heatmaps(c_eval[:, :n_points], v[:, :n_points], eval_wh[1],
-                                        eval_wh[0], sigma)
+    target = M.render_gaussian_heatmaps(c_eval[:, :P], v[:, :P], eval_wh[1], eval_wh[0], sigma)
     loss, _ = loss_fn(model, imgs.to(dtype), target)
-    grads = torch.autograd.grad(loss, params)
+    # parameters no output reaches (an HRNet's last fuse layers) get zeros, as in JAX
+    grads = torch.autograd.grad(loss, params, materialize_grads=True)
     apply_update(params, grads, opt_state, ema, lr, ema_decay)
     return loss.detach()
 
@@ -125,7 +139,7 @@ def infer(eval_model, images, coords, vis, task, model_wh, eval_wh, dtype=torch.
     of one validation batch: the eval branch's resize, the model in inference mode, peaks
     with threshold -inf for the ball and 0.1 for the table."""
     imgs, c_model, v = augment_detection_batch(None, images, coords, vis, model_wh, train=False)
-    heat = eval_model(imgs.to(dtype))[0].permute(0, 3, 1, 2).float()
+    heat = heatmap(eval_model(imgs.to(dtype))).permute(0, 3, 1, 2).float()
     threshold = float("-inf") if task == "ball" else 0.1
     preds = extract_peaks(heat, eval_wh[0], eval_wh[1], threshold=threshold)
     gts = torch.cat([eval_coords(c_model, model_wh, eval_wh), v[..., None]], -1)
@@ -202,12 +216,12 @@ def _parser():
 def _refuse_unported(args):
     if args.model not in TRAINABLE_MODELS:
         raise ValueError(f"--model {args.model}: only {TRAINABLE_MODELS} train in the port so "
-                         f"far; the HRNet and ViTPose trainers are ROADMAP queue 1 item 8")
+                         f"far; the ViTPose trainer is ROADMAP queue 1 item 5")
     if args.data == "blurball":
-        raise ValueError("--data blurball: the BlurBall readers are ROADMAP queue 1 item 10")
+        raise ValueError("--data blurball: the BlurBall readers are ROADMAP queue 1 item 7")
     for flag in ("dp", "torch_init", "hf_backbone"):
         if getattr(args, flag) is not None:
-            raise ValueError(f"--{flag} is not ported yet (ROADMAP queue 1 item 8)")
+            raise ValueError(f"--{flag} is not ported yet (ROADMAP queue 1 item 5)")
 
 
 def _to_device(device, *arrays):
@@ -231,7 +245,8 @@ def main(argv=None):
 
     task = args.task
     in_frames = (args.in_frames or 3) if task == "ball" else 1
-    model, (MW, MH) = get_detector(args.model, task, in_frames=in_frames, train=True)
+    model, (MW, MH) = get_detector(args.model, task, in_frames=in_frames, train=True,
+                                   remat=True)
     eval_model, _ = get_detector(args.model, task, in_frames=in_frames, train=False)
     if args.resolution:
         MW, MH = args.resolution
@@ -282,7 +297,7 @@ def main(argv=None):
                 q.copy_(e)
             for q, b in zip(eval_model.buffers(), model.buffers()):
                 q.copy_(b)
-        return eval_model
+        return eval_model.train(False)  # an HRNet folds the new weights
 
     def val_batches():  # full batches only, as the reference validates
         n_val = len(index_va) if args.val_samples is None else min(len(index_va),
