@@ -119,7 +119,7 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             frames at 50 fps through `TableTennisPipeline.run_rally`, the main path: launches
             per piece (32 K1, 32 K2, 80 K5a, 28 K5b; half of each on a ball-only piece of
             `table_stride` 16) with every count set to 0 just before and read just after;
-            frames/s (median and range of 2 warm calls) in rgb and i420, with upload_res
+            frames/s (one warm call each; RALLY_CALLS) in rgb and i420, with upload_res
             "model" and None, table_stride 1 and 2; the host downscale's ms per frame and
             the rate it would leave if it overlapped nothing (`no_overlap_frames_per_s`); every
             detector's peaks through the slab step (`_rally_peaks`) on 61 frames (triplets
@@ -153,7 +153,8 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             steps: 262 tangent and 14 forward S1 launches per call) on tests/test_fitting.py's
             topspin and backspin states observed through the simulation camera at 50 fps over
             the JAX tests' 0.46 s and over 1 s, and on two accepted datagen trajectories over
-            1 s, each cold and warm: seconds per fit, reproj_px, basin_spread_m, the mean 3D
+            1 s (the 0.46 s cases cold and warm, the 1 s ones once): seconds per fit,
+            reproj_px, basin_spread_m, the mean 3D
             error against the truth and the spin class (gates on the two test states over
             0.46 s: under 10 cm and the right class); one warm start (`init=`) from the
             topspin truth perturbed by 2 cm; the two states over 1 s from JAX's own draws
@@ -194,7 +195,15 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             run_detection's 1280x704 batch 4; (c) `closed_loop.main` for a few training
             steps per task and 2 rallies, and `run_detection --model wasb` / `--task table
             --model hrnet` for 2 steps on a tiny TTHQ layout, whose checkpoints
-            `BallDetector` / `TableDetector` load;
+            `BallDetector` / `TableDetector` load; (d) the evaluation entry points on
+            (a)'s pipeline and store (EV_RALLIES): `evaluate_rally` and
+            `evaluate_rally_ttst` on held-out rallies (finite, TTST under the ball and
+            table gates, launches per piece counted) and `visualize_rally`'s two PNGs;
+            `run_detection_eval`'s detections on tiny_tthq with the committed WASB and b0,
+            the card against the CPU under the peak rule; `run_physics_fit_eval`'s store
+            protocol on 16 test trajectories at its defaults (S1 launches counted, the
+            coverage and the 3D median reported); `compare_speed` of WASB and b0;
+            `hub.download_example_images` and `run_rally` on its frames;
 25. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
@@ -354,7 +363,7 @@ K3_GRAD_SHAPE = (2, 13440, 1400, 2, 64)  # b2 ToMe stage 2 at batch 2
 
 # the rally: 64 frames at 50 fps through the production ensemble at chunk 8 (8 pieces);
 # the slab check on 61 frames: 7 whole pieces and a last piece of 5 padded to 8
-RALLY_FRAMES, RALLY_FPS, RALLY_CALLS, RALLY_EDGE_FRAMES = 64, 50.0, 2, 61
+RALLY_FRAMES, RALLY_FPS, RALLY_CALLS, RALLY_EDGE_FRAMES = 64, 50.0, 1, 61
 # launches of one piece with table frames: two b2 (16 K1 + 16 K2 each), WASB and the table
 # HRNet (40 K5a + 14 K5b each); a ball-only piece runs half of each
 RALLY_PER_PIECE = {"fused_attention_block": 32, "fused_ln_ffn": 32, "conv3x3_bias_act": 80,
@@ -491,6 +500,22 @@ HR_TIMED = (((960, 544), 2), ((1280, 704), 4))  # (W, H), batch: the closed loop
 HR_TIMED_STEPS = 2
 # the CLI: a few steps per task at the closed loop's default resolution, 2 rallies
 CL_CLI_STEPS, CL_CLI_RES = 2, (960, 544)
+# closed_loop (d): the evaluation entry points on the closed loop's pipeline and store.
+# EV_RALLIES held-out rallies through `evaluate_rally` (TTHQ) and `evaluate_rally_ttst`
+# (TTST: the store's truth as annotations at 2560x1440, laid out as extract_ttst lays them
+# out, one padding frame at each end), every number finite, TTST's ball detection and
+# table errors (their means over the rallies) under CL_GATES' ball and table gates, the
+# kernels launched per piece as in (a); `run_detection_eval`'s detections with the
+# committed WASB and b0 at their trained 960x544 on a TTHQ layout of EV_DET_FRAMES frames
+# of a held-out rendered rally (the truth as labels; the test split is every other
+# sample), EV_DET_LIMIT[task] test samples each, the card's against the CPU's f32 under the
+# peak rule of CL_PEAK_* over both tasks' detections (the CPU's run on the low-priority
+# worker of (b)'s CPU steps, beside the earlier phases); the physics-fit
+# evaluation's store protocol on EV_FIT_TRAJ test trajectories at its defaults (one batch:
+# FIT_LAUNCHES S1 launches); `compare_speed` of WASB and b0 at batch 8, EV_SPEED_ITERS
+# forwards; `download_example_images`, and `run_rally` on its frames.
+EV_RALLIES, EV_FIT_TRAJ, EV_SPEED_ITERS = 2, 16, 5
+EV_DET_FRAMES, EV_DET_LIMIT = 18, {"ball": 4, "table": 8}
 # the CUDA API calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 CARD = ""  # nvidia-smi's name and power limit, set by main
@@ -3006,9 +3031,9 @@ def run_datagen(torch, profile=False):
 
 
 def run_fit(torch, pipe, datagen_tracks, profile=False):
-    """TableTennisPipeline.fit_physics at its defaults on the two test states and two
-    accepted datagen trajectories (each cold and warm), and one warm start; launches
-    counted per call."""
+    """TableTennisPipeline.fit_physics at its defaults on the two test states (cold and
+    warm) and, over 1 s, on them and two accepted datagen trajectories (once each), and
+    one warm start; launches counted per call."""
     import numpy as np
 
     from upliftingtabletennis_torch.core import fitting as FIT
@@ -3036,7 +3061,9 @@ def run_fit(torch, pipe, datagen_tracks, profile=False):
     for name, (state, n_obs) in cases.items():
         obs, times, truth, Mint, Mext = fit_track(torch, state, n_obs)
         seconds = []
-        for _ in ("cold", "warm"):
+        # the gated cases cold and warm; the reported 1 s cases once (no gate reads a
+        # second call)
+        for _ in (("cold", "warm") if name in FIT_SPIN_CLASS else ("cold",)):
             (spin, pos, r), s, launches = fit(obs, times, Mint, Mext)
             seconds.append(s)
         err_cm = 100 * np.linalg.norm(pos - truth, axis=-1)
@@ -3044,7 +3071,8 @@ def run_fit(torch, pipe, datagen_tracks, profile=False):
         true_local = G.transform_rotation_axes(torch.tensor(state[2]), torch.from_numpy(truth))
         entry = {"detections": n_obs,
                  "n_frames": int(np.ceil((float(times[-1]) + 1e-3) / 0.25)) * 125 + 2,
-                 "seconds_cold": seconds[0], "seconds_warm": seconds[1],
+                 "seconds_cold": seconds[0], "seconds_warm": seconds[-1] if len(seconds) > 1
+                 else None,
                  "mean_err_cm": float(err_cm.mean()), "max_err_cm": float(err_cm.max()),
                  "reproj_px": float(r.reproj_px), "basin_spread_m": float(r.basin_spread_m),
                  "spin_class": cls, "true_spin_class": 1.0 if true_local[1] > 0 else 2.0,
@@ -3448,7 +3476,7 @@ def cl_peak_check(torch, det, items):
     ref.load_state_dict(det.model.state_dict())
     ref.eval().to(DEVICE)
     d_k, d_b, d_kb = [], [], []  # kernel-f32, bf16 copy-f32, kernel-bf16 copy, px
-    missed = weak = 0
+    n = charged = missed = weak = 0
     with torch.no_grad():
         for s in range(0, len(items), HR_CHUNK):
             x = normalize_image(items[s:s + HR_CHUNK].float()).to(det.dtype)
@@ -3462,6 +3490,9 @@ def cl_peak_check(torch, det, items):
             seen = {k: v[..., 2] > 0 for k, v in p.items()}
             both = seen["kernel"] & seen["f32"]
             missed += int((seen["kernel"] ^ seen["f32"]).sum())
+            n_c, charged_c = peak_rule(p["kernel"][..., :2], p["bf16"][..., :2],
+                                       p["f32"][..., :2], seen["kernel"], seen["f32"])
+            n, charged = n + n_c, charged + charged_c
             weak += int((~seen["kernel"] & ~seen["f32"]).sum())
 
             def dist(a, b):
@@ -3473,8 +3504,6 @@ def cl_peak_check(torch, det, items):
     del ref
     torch.cuda.empty_cache()
     k, b, kb = (np.asarray(v or [0.0]) for v in (d_k, d_b, d_kb))
-    n = len(d_k) + missed
-    charged = int(((k > CL_PEAK_PX) & (b <= CL_PEAK_PX)).sum()) + missed
     return {"detections": n, "seen_by_one_path": missed, "below_min": weak,
             "charged_to_kernels": charged, "share_free": 1 - charged / max(n, 1),
             "kernel_vs_f32": {"within_near": float((k <= CL_PEAK_NEAR).mean()),
@@ -3486,6 +3515,226 @@ def cl_peak_check(torch, det, items):
             "kernel_vs_bf16_plain": {"within_near": float((kb <= CL_PEAK_NEAR).mean()),
                                      "within": float((kb <= CL_PEAK_PX).mean()),
                                      "worst_px": float(kb.max())}}
+
+
+def rally_tthq(root, store_d, ti):
+    """A TTHQ layout (video 1, the val/test pool) of the first EV_DET_FRAMES frames of
+    held-out rally `ti`, rendered at 1920x1080 on the card, labelled with the simulation's
+    truth: the ball in every frame but the first and last, the 13 table keypoints (visible
+    where inside the frame)."""
+    from upliftingtabletennis_torch.data.png import write_png
+    from upliftingtabletennis_torch.eval import closed_loop as CL
+
+    sample, T, frames = CL.render_held_out(store_d, ti, 0)
+    n = min(EV_DET_FRAMES, T)
+    ball = sample["ball_eval"][:n].cpu().numpy()
+    table = sample["table_eval"].cpu().numpy()
+    inside = (table[:, 0] >= 0) & (table[:, 0] < 1920) & (table[:, 1] >= 0) & (table[:, 1] < 1080)
+    os.makedirs(os.path.join(root, "tthq", "01"))
+    for f, frame in enumerate(frames[:n].cpu().numpy()):
+        write_png(os.path.join(root, "tthq", "01", f"01_{f:06d}.png"), frame)
+    rows = ["video;frame;ball_x;ball_y;ball_flag"]
+    table_rows = ["video;frame;" + ";".join(f"point_{k}_x;point_{k}_y;point_{k}_flag"
+                                            for k in range(1, 14))]
+    for f in range(1, n - 1):
+        rows.append(f"1;{f};{ball[f, 0]:.4f};{ball[f, 1]:.4f};2")
+        table_rows.append(f"1;{f};" + ";".join(f"{x:.4f};{y:.4f};{2 if ok else 0}"
+                                               for (x, y), ok in zip(table, inside)))
+    with open(os.path.join(root, "tthq", "ball_detection.csv"), "w") as fh:
+        fh.write("\n".join(rows))
+    with open(os.path.join(root, "tthq", "table_detection.csv"), "w") as fh:
+        fh.write("\n".join(table_rows))
+
+
+def ev_cpu_detections(torch, root):
+    """The committed detectors' f32 detections on the CPU of `rally_tthq`'s test samples
+    (at the lowest priority, as hr_cpu_reference): {task: (preds, gts)}."""
+    import threading
+
+    from upliftingtabletennis_torch.eval import run_detection_eval as DE
+
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    out = {}
+    for task in ("ball", "table"):
+        det, _ = DE.load_detector(task, cl_weights(f"{task}_detector"), device="cpu")
+        out[task] = DE.detections(task, det, root, 4, limit=EV_DET_LIMIT[task])
+    return out
+
+
+def peak_rule(card, plain_bf16, f32, seen_card, seen_f32):
+    """The closed loop's peak rule on peaks (..., 2) of the kernel path (`card`), its bf16
+    plain copy and the f32 plain path: a detection (seen on either side) charged to the
+    kernels where only one side sees it, or where the kernel path misses the f32 peak by
+    more than CL_PEAK_PX and the bf16 copy does not. Returns (detections, charged)."""
+    both = seen_card & seen_f32
+    k = (card - f32).norm(dim=-1)[both]
+    b = (plain_bf16 - f32).norm(dim=-1)[both]
+    missed = int((seen_card ^ seen_f32).sum())
+    return int(both.sum()) + missed, int(((k > CL_PEAK_PX) & (b <= CL_PEAK_PX)).sum()) + missed
+
+
+def run_eval(torch, ops, pipe, store, test_idx, det_root, det_cpu):
+    """closed_loop (d): the evaluation entry points (see EV_RALLIES). det_root: the TTHQ
+    layout of `rally_tthq`; det_cpu: the future of its CPU detections."""
+    import glob
+    import math
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from upliftingtabletennis_torch import hub
+    from upliftingtabletennis_torch.core import geometry as G
+    from upliftingtabletennis_torch.data import synthetic as SYN
+    from upliftingtabletennis_torch.data.png import read_png
+    from upliftingtabletennis_torch.eval import closed_loop as CL
+    from upliftingtabletennis_torch.eval import compare_speed as CS
+    from upliftingtabletennis_torch.eval import run_combined_eval as CE
+    from upliftingtabletennis_torch.eval import run_detection_eval as DE
+    from upliftingtabletennis_torch.eval import run_physics_fit_eval as PF
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.models.segformer import MiTBlock
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    res = {}
+    t0 = time.time()
+    store_d = SYN.store_to_device(store, DEVICE)
+    rallies = [CL.render_held_out(store_d, ti, j) for j, ti in enumerate(test_idx[:EV_RALLIES])]
+
+    # the combined evaluation, both protocols, and the pictures of one rally
+    for k in ops.ALL:
+        getattr(ops, k).launches = 0
+    torch.cuda.synchronize()
+    tthq, ttst, tthq_s, pieces = [], [], [], 0
+    with tempfile.TemporaryDirectory() as d:
+        for j, (sample, T, frames) in enumerate(rallies):
+            frames = frames.cpu().numpy()
+            times = sample["times"][0, :T].cpu().numpy()
+            fps = 1.0 / float(times[1] - times[0])
+            t = time.time()
+            tthq.append(CE.evaluate_rally(pipe, frames, fps))
+            tthq_s.append(time.time() - t)
+            w_local = G.transform_rotation_axes(sample["rotation"][0].cpu(),
+                                                sample["r_world"][0, :T].cpu())
+            ann = {"r_img": sample["r_img"][0, 1:T - 1].cpu().numpy(), "times": times[1:T - 1],
+                   "Mint": sample["Mint"][0].cpu().numpy(),
+                   "Mext": sample["Mext"][0].cpu().numpy(),
+                   "spin_class": 1 if float(w_local[1]) > 0 else 2,
+                   "table_img": sample["table_img"][0, :, :2].cpu().numpy()}
+            ttst.append(CE.evaluate_rally_ttst(pipe, frames, ann))
+            pieces += 2 * math.ceil(T / HR_CHUNK)
+            if j == 0:
+                CE.visualize_rally(pipe, frames, fps, d, "rally", ann["spin_class"])
+                pieces += math.ceil(T / HR_CHUNK)
+                pngs = sorted(os.path.basename(f) for f in glob.glob(os.path.join(d, "*.png")))
+        torch.cuda.synchronize()
+    launches = {k: getattr(ops, k).launches for k in ops.ALL}
+    blocks = sum(isinstance(m, MiTBlock) for m in pipe.table_detector.model.modules())
+    want = {k: 0 for k in ops.ALL}
+    want.update(fused_attention_block=blocks * pieces, fused_ln_ffn=blocks * pieces,
+                conv3x3_bias_act=RALLY_PER_PIECE["conv3x3_bias_act"] // 2 * pieces,
+                conv1x1_bias_act=RALLY_PER_PIECE["conv1x1_bias_act"] // 2 * pieces)
+    if launches != want:
+        raise AssertionError(f"the combined evaluation's launches {launches}, expected {want}")
+    keys = {"tthq": ("table_reproj_px", "ball_reproj_px"),
+            "ttst": ("table_px", "ball_detection_px", "ball_uplifting_px")}
+    nums = {p: {k: [r[k] for r in rs] for k in keys[p]} for p, rs in (("tthq", tthq),
+                                                                      ("ttst", ttst))}
+    if not all(np.isfinite(v).all() for p in nums.values() for v in p.values()):
+        raise AssertionError(f"the combined evaluation gave {nums}")
+    gated = {"ball_detection_px": (float(np.mean(nums["ttst"]["ball_detection_px"])),
+                                   CL_GATES["ball_detection_px_median"]),
+             "table_px": (float(np.mean(nums["ttst"]["table_px"])),
+                          CL_GATES["table_detection_px_median"])}
+    if any(v > lim for v, lim in gated.values()):
+        raise AssertionError(f"TTST over the closed loop's gates: {gated}")
+    if pngs != ["rally_2d.png", "rally_3d.png"]:
+        raise AssertionError(f"visualize_rally wrote {pngs}")
+    res["combined"] = {"numbers": nums, "gated": gated, "launches": launches, "pieces": pieces,
+                       "s_per_rally_evaluate_rally": tthq_s}
+    log("closed_loop", part="eval", combined=json.dumps(nums), gated=json.dumps(gated),
+        s_per_rally=json.dumps([round(v, 3) for v in tthq_s]), pieces=pieces,
+        launches=json.dumps({k: v for k, v in launches.items() if v}))
+
+    # detection evaluation: the card's detections against the CPU's f32 ones
+    det_res, n_all, charged_all = {}, 0, 0
+    cpu = det_cpu.result()
+    for task in ("ball", "table"):
+        det, _ = DE.load_detector(task, cl_weights(f"{task}_detector"), device=DEVICE)
+        t = time.time()
+        card, gts = DE.detections(task, det, det_root, 4, limit=EV_DET_LIMIT[task])
+        card_s = time.time() - t
+        ref, _ = get_detector(det.model_name, task, kernels=False, resolution=det.resolution)
+        ref.load_state_dict(det.model.state_dict())
+        ref.eval().to(DEVICE)
+        plain = types.SimpleNamespace(
+            device=det.device, dtype=torch.bfloat16, resolution=det.resolution,
+            _forward=lambda x, m=ref: (lambda o: o[0] if isinstance(o, tuple) else o)(m(x)))
+        bf16, _ = DE.detections(task, plain, det_root, 4, limit=EV_DET_LIMIT[task])
+        del ref, plain
+        f32, f32_gts = cpu[task]
+        if not torch.allclose(gts, f32_gts, rtol=0, atol=1e-3):  # the same labels, rescaled
+            raise AssertionError(f"evaluate_checkpoint {task}: the card and the CPU read "
+                                 f"other samples")
+        n, charged = peak_rule(card[..., :2], bf16[..., :2], f32[..., :2],
+                               card[..., 2] > 0, f32[..., 2] > 0)
+        n_all, charged_all = n_all + n, charged_all + charged
+        det_res[task] = {"card": DE.detection_metrics(task, card, gts),
+                         "cpu": DE.detection_metrics(task, f32, gts),
+                         "detections": n, "charged_to_kernels": charged,
+                         "worst_px": float((card[..., :2] - f32[..., :2]).norm(dim=-1).max()),
+                         "card_s": card_s}
+    det_res["share_free"] = 1 - charged_all / max(n_all, 1)
+    if det_res["share_free"] < CL_PEAK_SHARE:
+        raise AssertionError(f"evaluate_checkpoint, the card against the CPU: {det_res}")
+    res["detection"] = det_res
+    log("closed_loop", part="eval", detection=json.dumps(det_res))
+
+    # the physics-fit evaluation's store protocol at its defaults, one batch
+    args = PF._parser().parse_args(["--batch", str(EV_FIT_TRAJ), "--device", DEVICE])
+    idx = PF.eval_indices(len(store), SYN.split_indices(len(store), "train"),
+                          SYN.split_indices(len(store), "val"), "test", EV_FIT_TRAJ, 0)
+    S1.simulate.launches = S1.simulate_tangent.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    fit = PF.evaluate_store(store, idx, args, DEVICE)
+    fit_s = time.time() - t
+    s1 = {"simulate": S1.simulate.launches, "simulate_tangent": S1.simulate_tangent.launches}
+    if s1 != FIT_LAUNCHES or fit["n_traj"] != EV_FIT_TRAJ or not all(
+            np.isfinite(fit[k]) for k in ("err3d_cm_mean", "err3d_cm_median", "coverage")):
+        raise AssertionError(f"the physics-fit evaluation: {fit}, S1 launches {s1}")
+    res["physics_fit"] = {"summary": fit, "s_per_batch": fit_s, "s1_launches": s1}
+    log("closed_loop", part="eval", physics_fit_s=f"{fit_s:.2f}", coverage=fit["coverage"],
+        err3d_cm_median=f"{fit['err3d_cm_median']:.2f}", s1_launches=json.dumps(s1))
+
+    # compare_speed
+    res["compare_speed"] = {f"{task}/{name}": CS.measure(task, name, 8, EV_SPEED_ITERS,
+                                                         device=DEVICE)
+                            for task, name in (("ball", "wasb"), ("table", "segformerpp_b0"))}
+    torch.cuda.empty_cache()
+    log("closed_loop", part="eval", compare_speed=json.dumps(
+        {k: f"{v['sec_per_batch'] * 1e3:.2f} ms/batch {v['resolution']}"
+         for k, v in res["compare_speed"].items()}))
+
+    # the example images, and the pipeline on them
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        folder = hub.download_example_images(os.path.join(d, "examples"), device=DEVICE)
+        gen_s = time.time() - t
+        with open(os.path.join(folder, "meta.json")) as f:
+            meta = json.load(f)
+        frames = np.stack([read_png(os.path.join(folder, f"frame_{i:04d}.png"))
+                           for i in range(meta["n_frames"])])
+    out = pipe.run_rally(frames, meta["fps"])
+    truth = np.asarray(meta["ball_px_1920x1080"])[np.asarray(out["valid_idx"]) + 1]
+    err = np.linalg.norm(out["ball"] - truth, axis=-1)
+    if frames.shape[1:] != (1080, 1920, 3) or not len(err) or not np.isfinite(err).all():
+        raise AssertionError(f"the example rally: {frames.shape}, {len(err)} detections")
+    res["examples"] = {"n_frames": meta["n_frames"], "seconds": gen_s, "detections": len(err),
+                       "ball_px_median": float(np.median(err))}
+    log("closed_loop", part="eval", examples=json.dumps(res["examples"]),
+        eval_s=f"{time.time() - t0:.1f}")
+    return res
 
 
 def hr_step(torch, CL, model, batch):
@@ -3646,18 +3895,25 @@ def run_hr_train_timing(torch, CL):
 
 
 def start_closed_loop(torch):
-    """The closed_loop phase's store and (b)'s cases, with the CPU reference steps (about
-    50 s of CPU) started on a low-priority worker thread: `main` calls it after the build,
-    so that they run beside the earlier phases. Returns (store, cases, pool, futures)."""
+    """The closed_loop phase's store, (b)'s cases and (d)'s TTHQ layout, with the CPU
+    reference steps (about 50 s of CPU) and the CPU's detections of (d) started on a
+    low-priority worker thread: `main` calls it after the build, so that they run beside
+    the earlier phases. Returns (store, cases, pool, futures, (d)'s layout directory,
+    its future)."""
+    import tempfile
+
     from upliftingtabletennis_torch.data import synthetic as SYN
     from upliftingtabletennis_torch.eval import closed_loop as CL
 
     store = CL._load_store(None, device=DEVICE)
-    cases = hr_train_cases(torch, CL, SYN.store_to_device(store, DEVICE),
-                           SYN.split_indices(len(store), "train"))
+    store_d = SYN.store_to_device(store, DEVICE)
+    cases = hr_train_cases(torch, CL, store_d, SYN.split_indices(len(store), "train"))
+    det_dir = tempfile.TemporaryDirectory()
+    rally_tthq(det_dir.name, store_d, SYN.split_indices(len(store), "test")[EV_RALLIES])
     pool = ThreadPoolExecutor(max_workers=1)
-    return store, cases, pool, [pool.submit(hr_cpu_reference, torch, CL, base, batch)
-                                for _, base, batch in cases]
+    futures = [pool.submit(hr_cpu_reference, torch, CL, base, batch) for _, base, batch in cases]
+    return (store, cases, pool, futures, det_dir,
+            pool.submit(ev_cpu_detections, torch, det_dir.name))
 
 
 def run_closed_loop(torch, ops, pre=None):
@@ -3681,7 +3937,7 @@ def run_closed_loop(torch, ops, pre=None):
 
     res = {}
     t0 = time.time()
-    store, cases, pool, cpu_refs = pre or start_closed_loop(torch)
+    store, cases, pool, cpu_refs, det_dir, det_cpu = pre or start_closed_loop(torch)
     store_d = SYN.store_to_device(store, DEVICE)
     test_idx = SYN.split_indices(len(store), "test")
     pipe = CL._pipeline_from(cl_weights("ball_detector"), cl_weights("table_detector"),
@@ -3752,7 +4008,11 @@ def run_closed_loop(torch, ops, pre=None):
         iters=5, warmup=2) / 50
     log("closed_loop", peaks_vs_plain=json.dumps(peaks), tol_px=CL_PEAK_PX,
         near_px=CL_PEAK_NEAR, min_share=CL_PEAK_SHARE, render_ms_per_frame=f"{res['render_ms_per_frame']:.3f}")
-    del pipe, triplets, singles
+    del triplets, singles
+    # (d) the evaluation entry points on the same pipeline and store
+    res["eval"] = run_eval(torch, ops, pipe, store, test_idx, det_dir.name, det_cpu)
+    det_dir.cleanup()
+    del pipe
     torch.cuda.empty_cache()
 
     res["train_step_timing"] = run_hr_train_timing(torch, CL)
@@ -4123,6 +4383,10 @@ def main() -> int:
             entry["launches_rally"] = rally_res["launches"][entry["name"]]
         if closed_res["launches"].get(entry["name"]):  # b0 and WASB at 960x544
             entry["launches_closed_loop"] = closed_res["launches"][entry["name"]]
+        eval_launches = {**closed_res["eval"]["combined"]["launches"],
+                         **closed_res["eval"]["physics_fit"]["s1_launches"]}
+        if eval_launches.get(entry["name"]):  # closed_loop (d): the evaluation entry points
+            entry["launches_eval"] = eval_launches[entry["name"]]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:

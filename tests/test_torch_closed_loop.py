@@ -23,9 +23,12 @@
 * Each committed port checkpoint under `upliftingtabletennis_torch/weights/closed_loop/`
   bit-equal to `flax_to_torch` of its Orbax checkpoint, with its metadata.
 * The committed WASB and b0 detectors on one rendered frame at their 960x544: heatmaps
-  within 2e-4 (WASB) and 2e-5 (b0) of their max, against the JAX detectors.
+  within 2e-4 (WASB) and 2e-5 (b0) of their max, against the JAX detectors; their
+  sub-pixel peaks at 1920x1080 within 1e-2 px of JAX's, on JAX's heatmaps and on the
+  port's own.
 f32 throughout; JAX pinned to full-f32 matmuls (tests/conftest.py).
 """
+import functools
 import json
 import os
 import types
@@ -55,6 +58,7 @@ HEAT_TOL = {"wasb": 2e-4, "segformerpp_b0": 2e-5}
 MAX_REFEREED = {"wasb": 176, "segformerpp_b0": 0}
 ZERO_GRAD_REL = 1e-6
 F32_NOISE_TOL = 5e-2  # the card trainer's gradient limit
+PEAK_PX = 1e-2
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "upliftingtabletennis_torch", "weights", "closed_loop")
 
@@ -285,6 +289,17 @@ def test_scoring_of_a_fixed_pipeline_output_matches_jax(tmp_path, monkeypatch):
             assert a == b, what
 
     close(got, want, "result")
+    # the port's rally_diag.json also keeps each rally's calibration input and output
+    extra = {"resolution": [1920, 1080], "table_kp": np.asarray(out["table"]).tolist(),
+             "table_truth": None, "calib_Mint": np.asarray(calib[0]).tolist(),
+             "calib_Mext": np.asarray(calib[1]).tolist()}
+    for rally in got_diag[1]:
+        assert set(rally) == set(want_diag[1][0]) | set(extra)
+        np.testing.assert_allclose(rally.pop("table_truth"), sample["table_img"][0, :, :2]
+                                   * np.float32(0.75) - np.float32(0.125), atol=1e-4)
+        for k, v in extra.items():
+            if v is not None:
+                np.testing.assert_allclose(rally.pop(k), v, rtol=1e-6, err_msg=k)
     close(got_diag, want_diag, "diagnostics")
 
 
@@ -302,8 +317,10 @@ def test_committed_weights_are_the_converted_orbax_checkpoints(name):
         assert info["render_res"] == [960, 544] and info["task"] in name
 
 
-@pytest.mark.parametrize("task,name", [("ball", "wasb"), ("table", "segformerpp_b0")])
-def test_committed_detectors_match_jax_on_a_rendered_frame(task, name):
+@functools.lru_cache(maxsize=None)
+def _rendered_heatmaps(task, name):
+    """(JAX's heatmap, the port's) of a committed detector on one rendered 1080p frame
+    (triplet for the ball) resized to the detectors' trained 960x544, NHWC f32 numpy."""
     from upliftingtabletennis_tpu.data import render_rally as JR
     from upliftingtabletennis_tpu.data.image_transforms import normalize_image
     from upliftingtabletennis_tpu.data.synthetic import sample_cameras
@@ -332,5 +349,31 @@ def test_committed_detectors_match_jax_on_a_rendered_frame(task, name):
         device="cpu")
     with torch.no_grad():
         got = det._forward(torch.from_numpy(np.asarray(x))).numpy()
+    return want, got
+
+
+@pytest.mark.parametrize("task,name", [("ball", "wasb"), ("table", "segformerpp_b0")])
+def test_committed_detectors_match_jax_on_a_rendered_frame(task, name):
+    want, got = _rendered_heatmaps(task, name)
     assert want.std() > 1e-2
     assert _rel(got, want) <= HEAT_TOL[name]
+
+
+@pytest.mark.parametrize("task,name", [("ball", "wasb"), ("table", "segformerpp_b0")])
+def test_peaks_of_committed_detectors_match_jax(task, name):
+    """`extract_peaks` (the detectors' and run_detection_eval's decode) on the heatmaps of
+    the trained detectors, at 1920x1080 with each task's threshold: the port's on JAX's
+    heatmap within PEAK_PX of JAX's (the same 20-step f32 LM on the same 3x3 windows,
+    tests/test_torch_pipeline.py's limit on synthetic blobs) with the same visibility;
+    the port's on its own heatmap within PEAK_PX of JAX's on JAX's."""
+    from upliftingtabletennis_tpu.ops.peak import extract_peaks as jax_extract_peaks
+    from upliftingtabletennis_torch.ops.peak import extract_peaks
+
+    want, got = _rendered_heatmaps(task, name)
+    thr = float("-inf") if task == "ball" else 0.1
+    ref = np.asarray(jax_extract_peaks(jnp.moveaxis(jnp.asarray(want), -1, 1), 1920, 1080, thr))
+    for heat in (want, got):
+        peaks = extract_peaks(torch.from_numpy(heat).permute(0, 3, 1, 2), 1920, 1080, thr).numpy()
+        np.testing.assert_array_equal(peaks[..., 2], ref[..., 2])
+        assert np.abs(peaks[..., :2] - ref[..., :2]).max() <= PEAK_PX
+    assert ref[..., 2].sum() >= (1 if task == "ball" else 10)  # the detections are there

@@ -21,7 +21,7 @@ starts as the JAX `default_inits` turns its own draws, so a test can feed it JAX
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -388,19 +388,26 @@ def fit_trajectory_batch(obs, times, mask, Mint, Mext, *, n_frames: int,
                          substeps: int = SUBSTEPS, dt: float = DT,
                          huber_px: Optional[float] = None,
                          init_state: Optional[BallState] = None,
-                         seed_select_rel: float = 1.3, device="cuda") -> FitResult:
+                         seed_select_rel: float = 1.3, draws: Optional[Sequence[dict]] = None,
+                         device="cuda") -> FitResult:
     """Fit B tracks at once: obs (B, T, 2), times, mask (B, T), Mint (B, 3, 3), Mext
     (B, 4, 4); n_frames covers every track's visible times. All B * n_starts starts
     integrate in one S1 launch per physics call. `init_state` (fields (B, 3)) seeds
     start 0 of each track with an external prediction and start 1 with its spin-flipped
-    copy, and the winner is then picked by the seed-aware rule. Returns a FitResult of
-    (B, ...) tensors."""
+    copy, and the winner is then picked by the seed-aware rule. `draws` (B dicts of
+    `draw_inits`, one per track) gives the starts' draws in place of `generator`'s.
+    Returns a FitResult of (B, ...) tensors."""
     dev = resolve_device(device)
     obs, times, mask, Mint, Mext = (_f32(a, dev) for a in (obs, times, mask, Mint, Mext))
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    starts = [default_inits(obs[b], times[b], mask[b], Mint[b], Mext[b], n_starts, generator)
-              for b in range(obs.shape[0])]
+    if draws is None:
+        starts = [default_inits(obs[b], times[b], mask[b], Mint[b], Mext[b], n_starts,
+                                generator) for b in range(obs.shape[0])]
+    else:
+        starts = [inits_from_draws({k: _f32(v, dev) for k, v in draws[b].items()}, obs[b],
+                                   times[b], mask[b], Mint[b], Mext[b])
+                  for b in range(obs.shape[0])]
     r, v, w = (torch.stack(x) for x in zip(*starts))
     seed_q = None
     if init_state is not None:

@@ -70,8 +70,9 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def write_png(path, img: np.ndarray) -> None:
-    """Write (H, W) or (H, W, 1/3/4) uint8 as an 8-bit PNG (no row filter)."""
+def write_png(path, img: np.ndarray, text=None) -> None:
+    """Write (H, W) or (H, W, 1/3/4) uint8 as an 8-bit PNG (no row filter); `text`, a dict
+    of Latin-1 keyword -> value, goes into tEXt chunks (e.g. {"Title": ...})."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim == 2:
         img = img[..., None]
@@ -80,6 +81,8 @@ def write_png(path, img: np.ndarray) -> None:
     rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * bpp)], 1)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
+                + b"".join(_chunk(b"tEXt", k.encode("latin-1") + b"\0" + v.encode("latin-1"))
+                           for k, v in (text or {}).items())
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
 
 
@@ -111,4 +114,7 @@ def read_png(path) -> np.ndarray:
     ftype = raw[:, 0]
     if (ftype > 4).any():
         raise ValueError(f"{path}: unknown row filter {int(ftype.max())}")
-    return _unfilter(raw[:, 1:].reshape(height, width, bpp), ftype, bpp)
+    rows = raw[:, 1:].reshape(height, width, bpp)
+    if not ftype.any():  # no row filter (as write_png writes): the bytes are the pixels
+        return rows.copy()
+    return _unfilter(rows, ftype, bpp)

@@ -525,7 +525,15 @@ def evaluate_pipeline(store, ckpts, args, device="cuda", pipe=None) -> dict:
             "calib_reproj_px": float(sc["reproj"]),
             "table_px_mean": float(np.mean(sc["table"])) if sc["table"] is not None else None,
             "pos3d_err_cm_median": (float(100 * np.median(sc["pos3d"]))
-                                    if sc["pos3d"] is not None else None)})
+                                    if sc["pos3d"] is not None else None),
+            # the calibration's input and output, so that a rally can be calibrated
+            # again elsewhere: the fused keypoints (x, y, visibility) in the frame
+            # `resolution` (W, H), their truth, and the camera this run fitted
+            "resolution": [int(frames.shape[2]), int(frames.shape[1])],
+            "table_kp": np.asarray(out["table"], np.float64).tolist(),
+            "table_truth": truth["table"].astype(np.float64).tolist(),
+            "calib_Mint": np.asarray(calib[0], np.float64).tolist(),
+            "calib_Mext": np.asarray(calib[1], np.float64).tolist()})
         if sc["spin"] is not None:
             spin_scores.append(sc["spin"][0])
             spin_labels.append(sc["spin"][1])

@@ -1,10 +1,12 @@
 """Detection metrics, the heatmap loss and target rendering.
 
-Port of the part of `upliftingtabletennis_tpu/eval/metrics.py` the detector trainer
-uses: ball PCK@k px against the motion-blur streak (the distance to the segments
-(min, center) and (center, max)), table PCK@k px over keypoints both predicted and
-annotated visible, the weighted MSE heatmap loss (weight 100 where the target exceeds
-0.1, mean over all elements) and Gaussian heatmap targets rendered on the device.
+Port of `upliftingtabletennis_tpu/eval/metrics.py`: ball PCK@k px against the
+motion-blur streak (the distance to the segments (min, center) and (center, max)), table
+PCK@k px over keypoints both predicted and annotated visible, the mean pixel distance
+(and the mean streak distance) over detections that are not the -100 sentinel, the
+visible/invisible accuracy of a 2-logit head, the weighted MSE heatmap loss (weight 100
+where the target exceeds 0.1, mean over all elements) and Gaussian heatmap targets
+rendered on the device.
 
 Visibility flags: 1 = visible, 0 = invisible. The functions take torch tensors on any
 device and compute in their dtype (f32 in the trainer).
@@ -14,7 +16,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["BALL_VISIBLE", "BALL_INVISIBLE", "point_segment_distance", "distance_to_streak",
-           "pck_ball", "pck_keypoints", "weighted_mse_loss", "render_gaussian_heatmaps"]
+           "pck_ball", "pck_keypoints", "average_distance", "average_distance_to_streak",
+           "acc_visible_invisible", "weighted_mse_loss", "render_gaussian_heatmaps"]
 
 BALL_VISIBLE = 1
 BALL_INVISIBLE = 0
@@ -57,6 +60,43 @@ def pck_keypoints(preds, gts, tolerance):
     n = m.sum()
     return torch.where(n > 0, correct.sum() / torch.clamp(n, min=1),
                        torch.tensor(-1.0, device=preds.device))
+
+
+def _mean_over_valid(d, preds):
+    """The mean of d over the detections whose x and y are both above the -100 sentinel;
+    10000 when there is none."""
+    valid = (preds[..., 0] > -100) & (preds[..., 1] > -100)
+    n = valid.sum()
+    return torch.where(n > 0, (d * valid).sum() / torch.clamp(n, min=1),
+                       torch.tensor(10000.0, device=preds.device))
+
+
+def average_distance(preds, gts):
+    """Mean pixel distance over valid (> -100 sentinel) detections; 10000 when nothing is
+    valid."""
+    return _mean_over_valid(torch.linalg.vector_norm(preds[..., :2] - gts[..., :2], dim=-1),
+                            preds)
+
+
+def average_distance_to_streak(preds, gt_min, gt, gt_max):
+    """Mean distance to the blur streak over valid detections; 10000 when nothing is
+    valid."""
+    return _mean_over_valid(
+        distance_to_streak(preds[..., :2], gt_min[..., :2], gt[..., :2], gt_max[..., :2]), preds)
+
+
+def acc_visible_invisible(cls_logits, label_vis):
+    """(accuracy on the visible labels, accuracy on the invisible ones) of 2-logit heads
+    (N, 2): visible is predicted where logit 0 <= logit 1. The invisible accuracy is 0
+    without an invisible label."""
+    gt_vis = label_vis == BALL_VISIBLE
+    gt_invis = label_vis == BALL_INVISIBLE
+    pred_vis = cls_logits[:, 0] <= cls_logits[:, 1]
+    acc_vis = (pred_vis & gt_vis).sum() / torch.clamp(gt_vis.sum(), min=1)
+    n_invis = gt_invis.sum()
+    acc_invis = torch.where(n_invis > 0, (~pred_vis & gt_invis).sum() / torch.clamp(n_invis, min=1),
+                            torch.tensor(0.0, device=cls_logits.device))
+    return acc_vis, acc_invis
 
 
 def weighted_mse_loss(pred, target):

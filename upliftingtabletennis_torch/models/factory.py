@@ -19,6 +19,10 @@ DETECTOR_RESOLUTIONS = {
     "hrnet": (1280, 704),
 }
 
+# the detectors of each task (ref: models/factory.py:24-25 of the JAX package)
+BALL_MODELS = ("segformerpp_b0", "segformerpp_b2", "vitpose", "wasb")
+TABLE_MODELS = ("segformerpp_b0", "segformerpp_b2", "vitpose", "hrnet")
+
 
 def get_detector(name: str, task: str = "ball", in_frames: int = None,
                  classify_invisible: bool = False, head_style: str = "nvlabs",
@@ -47,8 +51,8 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     frames = in_frames if in_frames is not None else (3 if task == "ball" else 1)
     is_segformer = name in ("segformerpp_b0", "segformerpp_b2")
     if train and name == "vitpose":
-        raise ValueError("training 'vitpose' is not ported yet (ROADMAP queue 1 item 5: the "
-                         "ViTPose trainer, with its head BatchNorms and models/losses.py)")
+        raise ValueError("training 'vitpose' is not ported yet (ROADMAP queue 1 item 5a: "
+                         "stochastic depth and the head's BatchNorms on batch statistics)")
     if is_segformer:
         model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
                              head_style=head_style, decoder_dim=decoder_dim, kernels=kernels,
