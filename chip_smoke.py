@@ -89,7 +89,7 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             kernel of the chain alone measures);
 14. vitpose `hub.ball_detection("vitpose")` on the triplets and `hub.table_detection("vitpose")`
             on the centre frames at chunk 8, 1152x640: peak device memory and no port
-            kernel launched on the 16 frames; frames/s as the median and range of 5 warm
+            kernel launched on the 16 frames; frames/s as the median and range of 3 warm
             calls over 64 frames each; heatmaps against a `kernels=False` f32 copy (einsum attention);
             `keypoints_from_heatmaps` (default and unbiased) on the table heatmaps against
             the same call on their CPU copy;
@@ -115,6 +115,25 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             steps), images/s and peak memory; (e) the CLI on the card: 2 steps and a
             validation pass on a tiny TTHQ layout written as PNGs, its checkpoint loaded by
             `BallDetector`;
+16b. vitpose_train ViTPose-S in training mode (`run_detection` with `--model vitpose`):
+            (a) one warm full-width step (batch 4, 1152x640, the loss at 1920x1080, bf16
+            forward through `F.scaled_dot_product_attention`): ms (median of 3), images/s,
+            peak memory, no port kernel launched; (b) the card's f32 step (einsum
+            attention) against the CPU's from the same weights, batch and drop masks at
+            256x192 batch 2 and at 32x32 batch 1, at the HRNet step's limits (loss 2e-2,
+            gradients 5e-2, running statistics 1e-3), with planted faults that must break
+            them (the drop path without `/ keep`, the head's BatchNorms on their running
+            statistics in training, and at 32x32 the unbiased variance); the CPU's steps
+            run on the closed loop's low-priority worker; (c) `run_detection --model vitpose
+            --torch_init` on a synthetic MAE checkpoint for 2 steps on a tiny TTHQ layout:
+            it prints the counts `utils/port_torch.torch_init_detector` gives, and its
+            checkpoint loads into `BallDetector`; (d) world size 1: one segformerpp_b0
+            trainer step under DDP over NCCL against the same step without DDP (loss and
+            gradients within twice the plain step's own repeat difference, the larger of
+            two repeats; K1, K2 and K4
+            forward and backward launched, as many as without DDP); `run_rally` of
+            `hub.full_pipeline`'s pipeline given a one-card mesh, and `generate_dataset` on
+            a one-card mesh, against the runs without (the latter from the same generator);
 17. rally  `hub.full_pipeline()` (seeded random weights, chunk 8) on 64 synthetic 1920x1080
             frames at 50 fps through `TableTennisPipeline.run_rally`, the main path: launches
             per piece (32 K1, 32 K2, 80 K5a, 28 K5b; half of each on a ball-only piece of
@@ -122,7 +141,7 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             frames/s (one warm call each; RALLY_CALLS) in rgb and i420, with upload_res
             "model" and None, table_stride 1 and 2; the host downscale's ms per frame and
             the rate it would leave if it overlapped nothing (`no_overlap_frames_per_s`); every
-            detector's peaks through the slab step (`_rally_peaks`) on 61 frames (triplets
+            detector's peaks through the slab step (`_rally_peaks`) on 29 frames (triplets
             across piece edges, a padded last piece) against the detector's own `predict`
             within 1e-3 px; rgb against i420 (shapes equal, the largest peak difference);
             i420 -> RGB of the 64 frames on the card against the CPU within 1 grey level;
@@ -172,7 +191,7 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             updated) that must fail it; gate 3: tests/test_data_pipeline.py's 60 steps at lr
             1e-3 from the weights and batch JAX used (tests/uplift_witness_60.npz) lower the
             loss below 0.9 of the first and follow JAX's losses; ms per assembly and per
-            step (median of 20 warm), trajectories/s, kernel launches of each, the idle share, peak memory; the CLI
+            step (median of 10 warm), trajectories/s, kernel launches of each, the idle share, peak memory; the CLI
             (`run_uplifting.main`) over two epochs with --ttst_dir, then --resume for a third
             (the state as loaded bit-equal to the first run's, every checkpoint the metrics
             call for present, `hub.uplifting(checkpoint=model_synthetic)` equal to the run's
@@ -323,7 +342,7 @@ VIT_RES = (1152, 640)  # ViTPose's native (W, H)
 # ViTPose's frames/s: the median (and the range) of this many warm predict calls, each
 # over VIT_RATE_ITEMS times the phase's 16 frames (8 chunks, about half a second): one
 # call of 2 chunks lasts 0.1 s, too short a window for the host's clock on a shared host
-VIT_RATE_CALLS, VIT_RATE_ITEMS = 5, 4
+VIT_RATE_CALLS, VIT_RATE_ITEMS = 3, 4
 
 # the trainer: segformerpp_b2, ball, at its 1600x896 input, batch 4 (the JAX default), the
 # loss at the 1920x1080 evaluation resolution
@@ -426,7 +445,7 @@ DATAGEN_ACCEPTED, DATAGEN_BATCH, DATAGEN_CPU_AGREEMENT = 1024, 8192, 0.995
 # each final_win shard capped at UPLIFT_CAP_S seconds; a synthetic TTST layout of
 # UPLIFT_TTST trajectories. Step times: the median of UPLIFT_TIMED_STEPS warm steps.
 UPLIFT_SCALE, UPLIFT_GEN_BATCH, UPLIFT_CAP_S, UPLIFT_TTST = 0.01, 8192, 3.0, 64
-UPLIFT_BATCH, UPLIFT_TIMED_STEPS, UPLIFT_PROFILED_STEPS = 64, 20, 3
+UPLIFT_BATCH, UPLIFT_TIMED_STEPS, UPLIFT_PROFILED_STEPS = 64, 10, 1
 # gate 1: the batch assembly on the card against the CPU from the same draws. The cameras'
 # sin, cos and norms round differently on the two, so a candidate whose projection touches
 # the image border, or the 15% span, within a rounding can be judged differently there: at
@@ -493,11 +512,12 @@ CL_PEAK_PX, CL_PEAK_SHARE, CL_PEAK_MIN, CL_PEAK_RALLIES, CL_PEAK_NEAR = 1.0, 0.9
 # within 5e-2 of its tensor's max |grad|) and the running statistics within 1e-3 of each
 # tensor's max. The statistics moved twice (the remat recompute running the update in
 # place) move them by 10% of their distance to the batch's: that must fail. The unbiased
-# variance moves them by var / (n - 1), n >= 2 x 68 x 120 at 960x544: its error is logged.
+# variance moves them by var / (n - 1), n >= 2 x 68 x 120 at 960x544: its error is logged
+# (phase vitpose_train gates that fault at a size where it shows, VT_UNBIASED_CASE).
 HR_STEP_RES, HR_STEP_BATCH = (960, 544), 2
 HR_LOSS_RTOL, HR_GRAD_REL, HR_STATS_REL = 2e-2, 5e-2, 1e-3
 HR_TIMED = (((960, 544), 2), ((1280, 704), 4))  # (W, H), batch: the closed loop, run_detection
-HR_TIMED_STEPS = 2
+HR_TIMED_STEPS = 1
 # the CLI: a few steps per task at the closed loop's default resolution, 2 rallies
 CL_CLI_STEPS, CL_CLI_RES = 2, (960, 544)
 # closed_loop (d): the evaluation entry points on the closed loop's pipeline and store.
@@ -516,6 +536,24 @@ CL_CLI_STEPS, CL_CLI_RES = 2, (960, 544)
 # forwards; `download_example_images`, and `run_rally` on its frames.
 EV_RALLIES, EV_FIT_TRAJ, EV_SPEED_ITERS = 2, 16, 5
 EV_DET_FRAMES, EV_DET_LIMIT = 18, {"ball": 4, "table": 8}
+# vitpose_train: (a) ViTPose-S trained as the JAX trainer trains it (batch VT_BATCH at
+# 1152x640, the loss at 1920x1080), VT_TIMED warm steps timed; (b) the card's f32 step
+# (einsum attention, no TF32) against the CPU's from the same weights, batch and drop masks,
+# at the HRNet step's limits (HR_*): at a reduced size, and at batch 1 on a 2x2 token grid,
+# where the head's first BatchNorm sees 16 values per channel, so that the unbiased
+# variance (16/15 of the biased) moves the running variance past HR_STATS_REL; (c) the CLI
+# at VT_CLI_RES; (d) the b0 trainer under DDP at world size 1 (VT_DDP_*) against the same
+# step without DDP, both deterministic, at VT_DDP_TOL; run_rally on
+# VT_RALLY_FRAMES frames and generate_dataset (VT_DATAGEN: accepted, batch) with a
+# one-card mesh.
+VT_BATCH, VT_TIMED = 4, 3
+VT_CHECK = (((256, 192), 2), ((32, 32), 1))
+VT_UNBIASED_CASE = "32x32_b1"
+VT_CLI_RES = (256, 192)
+VT_DDP_RES, VT_DDP_BATCH = (960, 544), 2
+VT_DDP_TOL = 1e-6  # the loss and every gradient tensor, of its max |grad|
+VT_RALLY_FRAMES = 16
+VT_DATAGEN = (64, 2048)
 # the CUDA API calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 CARD = ""  # nvidia-smi's name and power limit, set by main
@@ -2399,6 +2437,385 @@ def run_train(torch, ops, frames, profile=False):
     return res
 
 
+def mae_state_dict(torch, seed=0):
+    """A synthetic MAE ViT-S checkpoint (`mae_pretrain_vit_small.pth['model']`): a
+    3-channel patch embedding, a cls token, a 197-row position embedding (224x224), 12
+    blocks under the timm names, a final `norm`."""
+    g = torch.Generator().manual_seed(seed)
+    D = 384
+    sd = {"cls_token": torch.randn(1, 1, D, generator=g),
+          "pos_embed": torch.randn(1, 197, D, generator=g) * 0.02,
+          "patch_embed.proj.weight": torch.randn(D, 3, 16, 16, generator=g) * 0.02,
+          "patch_embed.proj.bias": torch.zeros(D), "norm.weight": torch.ones(D),
+          "norm.bias": torch.zeros(D)}
+    for i in range(12):
+        p = f"blocks.{i}."
+        for n in ("norm1", "norm2"):
+            sd[p + n + ".weight"], sd[p + n + ".bias"] = torch.ones(D), torch.zeros(D)
+        for n, (o, k) in (("attn.qkv", (3 * D, D)), ("attn.proj", (D, D)),
+                          ("mlp.fc1", (4 * D, D)), ("mlp.fc2", (D, 4 * D))):
+            sd[p + n + ".weight"] = torch.randn(o, k, generator=g) * k ** -0.5
+            sd[p + n + ".bias"] = torch.zeros(o)
+    return sd
+
+
+def vt_step(torch, model, x, target, masks):
+    """One ViTPose training step's loss, gradients and running statistics (on the host):
+    the trainer's loss_fn with explicit drop masks."""
+    from upliftingtabletennis_torch.train import run_detection as T
+
+    loss, _ = T.loss_fn(model, x, target, masks)
+    grads = torch.autograd.grad(loss, list(model.parameters()), materialize_grads=True)
+    stats = {k: v.detach().float().cpu() for k, v in model.named_buffers() if "running" in k}
+    return loss.item(), [g.float().cpu() for g in grads], stats
+
+
+def vt_case(torch, size):
+    """One case of (b): (name, the f32 model in training mode (einsum attention) with
+    perturbed statistics, input, target at the input's size, drop masks), seeded, on the
+    host. size: ((W, H), B) of VT_CHECK."""
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.models.vit import draw_drop_masks
+    from upliftingtabletennis_torch.pipeline.interface import init_weights
+
+    (W, H), B = size
+    base, _ = get_detector("vitpose", "ball", train=True, kernels=False, resolution=(W, H))
+    init_weights(base, 3)
+    perturb_batch_norms(torch, base, 4)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(B, H, W, 9, generator=g)
+    target = torch.rand(B, 1, H, W, generator=g)
+    return f"{W}x{H}_b{B}", base, x, target, draw_drop_masks(g, B)
+
+
+def vt_cpu_reference(torch, size):
+    """A case of (b) and the CPU's f32 step on it, built and run at the lowest priority
+    (as `hr_cpu_reference`). Returns (case, the step, seconds)."""
+    import copy
+    import threading
+
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    case = vt_case(torch, size)
+    _, base, x, target, masks = case
+    t = time.time()
+    return case, vt_step(torch, copy.deepcopy(base), x, target, masks), time.time() - t
+
+
+def start_vitpose_train(torch, pool):
+    """(b)'s cases and their CPU steps, submitted to `pool` (the closed loop's
+    low-priority worker): their futures."""
+    return [pool.submit(vt_cpu_reference, torch, size) for size in VT_CHECK]
+
+
+def vt_faults(torch):
+    """The planted faults of (b): context managers that break the ViTPose step."""
+    import torch.nn.functional as F
+
+    from upliftingtabletennis_torch.models import batch_norm as BN
+    from upliftingtabletennis_torch.models import vit as V
+
+    def running_stats(self, x, deconv, bn):  # the head's BatchNorms as in inference
+        x = F.conv_transpose2d(x, deconv.weight.to(x.dtype), None, stride=2, padding=1)
+        return F.relu(F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                   False, 0.0, bn.eps))
+
+    return {"no_keep_scaling": lambda: patched(
+                V, _drop_path=lambda y, m, keep: y * m.to(y.dtype)[:, None, None]),
+            "running_stats_in_training": lambda: patched(V.HeatmapHead,
+                                                         _deconv_bn_relu=running_stats),
+            "unbiased_variance": lambda: patched(V, batch_norm=unbiased_stats_fault(
+                BN.batch_norm))}
+
+
+@contextlib.contextmanager
+def deterministic_step(torch):
+    """Make a b0 training step give the same bits on every run: cuDNN's deterministic
+    algorithms, and every bilinear resize of a tensor that needs a gradient (the decode
+    head's, the loss's to 1920x1080) as two products with its interpolation matrices,
+    the same resize without the atomic adds of the stock backward."""
+    import torch.nn.functional as F
+
+    stock = F.interpolate
+
+    def weights(n_in, n_out, like):  # half-pixel centres, clamped at the edges
+        src = ((torch.arange(n_out, dtype=torch.float64) + 0.5) * (n_in / n_out)
+               - 0.5).clamp(min=0)
+        i0 = src.floor().long().clamp(max=n_in - 1)
+        rows = torch.arange(n_out)
+        A = torch.zeros(n_out, n_in, dtype=torch.float64)
+        A.index_put_((rows, i0), 1 - (src - i0), accumulate=True)
+        A.index_put_((rows, (i0 + 1).clamp(max=n_in - 1)), src - i0, accumulate=True)
+        return A.to(like.device, like.dtype)
+
+    def interpolate(x, size=None, scale_factor=None, mode="nearest", align_corners=None,
+                    recompute_scale_factor=None, antialias=False):
+        if not (x.requires_grad and x.ndim == 4 and mode == "bilinear"
+                and isinstance(size, (tuple, list)) and not align_corners and not antialias):
+            return stock(x, size, scale_factor, mode, align_corners, recompute_scale_factor,
+                         antialias)
+        return weights(x.shape[2], size[0], x) @ x @ weights(x.shape[3], size[1], x).T
+
+    with patched(F, interpolate=interpolate), patched(torch.backends.cudnn, deterministic=True):
+        yield
+
+
+def run_vitpose_train(torch, ops, frames, pipe, pre, profile=False):
+    """Phase vitpose_train: (a) one warm full-width ViTPose step timed, (b) the card's
+    step against the CPU's with planted faults, (c) the CLI with --torch_init, (d) world
+    size 1 on the card: DDP over NCCL, a one-card mesh for run_rally and
+    generate_dataset. `pre`: what `start_vitpose_train` returned (the futures of (b)'s
+    cases and CPU steps)."""
+    import glob
+    import io
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from upliftingtabletennis_torch.data import datagen as DG
+    from upliftingtabletennis_torch.data.image_transforms import ImageAugmentConfig
+    from upliftingtabletennis_torch.models import batch_norm as BN
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.parallel.mesh import make_mesh
+    from upliftingtabletennis_torch.pipeline.interface import BallDetector, init_weights
+    from upliftingtabletennis_torch.train import run_detection as T
+    from upliftingtabletennis_torch.utils.port_torch import torch_init_detector
+
+    res = {}
+    cfg = ImageAugmentConfig()
+
+    def batch_of(B):  # B triplets at 1920x1080 with the blob's centre labelled (run_train's)
+        images = torch.from_numpy(np.stack([np.concatenate(frames[t:t + 3], -1)
+                                            for t in range(B)])).to(DEVICE).float()
+        coords = torch.tensor([[[300 + 140 * (t + 1), 700 - 45 * (t + 1)]] * 3
+                               for t in range(B)], dtype=torch.float32, device=DEVICE)
+        return images, coords, torch.ones(B, 3, device=DEVICE)
+
+    # (a) one warm full-width step: ViTPose-S at 1152x640, batch 4, the loss at 1920x1080
+    model, _ = get_detector("vitpose", "ball", train=True)
+    init_weights(model, 0)
+    model.to(DEVICE)
+    params = list(model.parameters())
+    opt, ema = T.init_adam(params), [p.detach().clone() for p in params]
+    gen = torch.Generator().manual_seed(0)
+    images, coords, vis = batch_of(VT_BATCH)
+
+    def step():
+        return T.train_step(model, params, opt, ema, gen, images, coords, vis, VIT_RES,
+                            EVAL_RES, cfg, dtype=torch.bfloat16).item()
+
+    first, first_s, launches = counted(torch, ops, step, {})  # no port kernel on this path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], [first]
+    for _ in range(VT_TIMED):
+        t = time.time()
+        losses.append(step())  # .item() waits for the step
+        step_ms.append(1e3 * (time.time() - t))
+    ms = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res["timing"] = dict(ms_per_step=ms, step_ms=step_ms, images_per_s=1e3 * VT_BATCH / ms,
+                         peak_mem_gb=peak_gb, first_step_s=first_s, losses=losses,
+                         launches=launches)
+    log("vitpose_train", step="a", config=f"{VIT_RES[0]}x{VIT_RES[1]}_b{VT_BATCH}",
+        ms_per_step=f"{ms:.2f}", step_ms=json.dumps([round(v, 2) for v in step_ms]),
+        images_per_s=f"{1e3 * VT_BATCH / ms:.3f}", peak_mem_gb=f"{peak_gb:.3f}",
+        first_step_s=f"{first_s:.3f}", losses=json.dumps([round(v, 5) for v in losses]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"ViTPose training losses not finite: {losses}")
+    if profile:
+        res["timing"]["profile"] = profile_calls(
+            torch, step, "one warm ViTPose-S training step (batch 4, 1152x640, the loss at "
+            "1920x1080)", categories={"sdpa": "aten::scaled_dot_product_attention",
+                                      "linears": "aten::linear",
+                                      "deconvolutions": "aten::conv_transpose2d",
+                                      "loss_upsample": "aten::upsample_bilinear2d",
+                                      "augmentation_gathers": "aten::gather"})
+    del model, params, opt, ema
+    torch.cuda.empty_cache()
+
+    # (b) the card's f32 step against the CPU's, and the planted faults
+    faults = vt_faults(torch)
+    res["check"] = {}
+    for fut in pre:
+        (name, base, x, target, masks), cpu, cpu_s = fut.result()
+        args = (x.to(DEVICE), target.to(DEVICE), masks.to(DEVICE))
+        on_card = base.to(DEVICE)  # the CPU's step ran on its own copy
+        state = {k: v.clone() for k, v in on_card.state_dict().items()}
+
+        def card_step():  # from the case's weights and statistics
+            on_card.load_state_dict(state)
+            return vt_step(torch, on_card, *args)
+
+        card = card_step()
+        broken = {}
+        for fault, ctx in faults.items():
+            with ctx():
+                broken[fault] = card_step()
+
+        def errs(got):
+            loss = abs(got[0] - cpu[0]) / abs(cpu[0])
+            grad = max(hr_rel(a, b) for a, b in zip(got[1], cpu[1]) if b.any())
+            stats = max(hr_rel(got[2][k], cpu[2][k]) for k in cpu[2])
+            return {"loss_rel_err": loss, "grad_max_rel_err": grad, "stats_max_rel_err": stats}
+
+        r = {**errs(card), "faults": {f: errs(b) for f, b in broken.items()},
+             "cpu_step_s": cpu_s}
+        res["check"][name] = r
+        log("vitpose_train", step="b", case=name, loss_rel_err=f"{r['loss_rel_err']:.3g}",
+            grad_max_rel_err=f"{r['grad_max_rel_err']:.3g}",
+            stats_max_rel_err=f"{r['stats_max_rel_err']:.3g}",
+            faults=json.dumps({f: {k: float(f"{v:.3g}") for k, v in e.items()}
+                               for f, e in r["faults"].items()}), cpu_step_s=f"{cpu_s:.1f}")
+        if (r["loss_rel_err"] > HR_LOSS_RTOL or r["grad_max_rel_err"] > HR_GRAD_REL
+                or r["stats_max_rel_err"] > HR_STATS_REL):
+            raise AssertionError(f"ViTPose {name}: the card's training step differs from the "
+                                 f"CPU's: {r}")
+        for fault in ("no_keep_scaling", "running_stats_in_training"):
+            e = r["faults"][fault]
+            if e["loss_rel_err"] <= HR_LOSS_RTOL and e["grad_max_rel_err"] <= HR_GRAD_REL:
+                raise AssertionError(f"ViTPose {name}: the fault {fault} passes the limits: {e}")
+        if name == VT_UNBIASED_CASE and r["faults"]["unbiased_variance"][
+                "stats_max_rel_err"] <= HR_STATS_REL:
+            raise AssertionError(f"ViTPose {name}: the unbiased variance passes the statistics "
+                                 f"limit: {r['faults']['unbiased_variance']}")
+        del card, broken, cpu, on_card, state
+    torch.cuda.empty_cache()
+
+    # (c) the CLI with the reference's MAE initialisation, 2 steps on a tiny TTHQ layout
+    with tempfile.TemporaryDirectory() as d:
+        tiny_tthq(d)
+        mae = mae_state_dict(torch)
+        path = os.path.join(d, "mae_pretrain_vit_small.pth")
+        torch.save({"model": mae}, path)
+        ref, _ = get_detector("vitpose", "ball", train=True, resolution=VT_CLI_RES)
+        # the counts depend on the keys and shapes alone
+        _, n_loaded, n_total = torch_init_detector(ref.state_dict(), mae, "vitpose", 3)
+        out = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(out):
+            T.main(["--task", "ball", "--model", "vitpose", "--data_root", d, "--batch_size",
+                    "2", "--num_epochs", "1", "--val_iterations", "2", "--max_steps", "2",
+                    "--resolution", str(VT_CLI_RES[0]), str(VT_CLI_RES[1]),
+                    "--eval_resolution", "640", "360", "--torch_init", path,
+                    "--save_dir", os.path.join(d, "ckpt"), "--logdir", os.path.join(d, "runs"),
+                    "--device", DEVICE])
+        cli_s = time.time() - t
+        printed = out.getvalue()
+        (ckpt,) = glob.glob(os.path.join(d, "ckpt", "*", "model.pt"))
+        det = BallDetector("vitpose", checkpoint=ckpt, device=DEVICE, resolution=VT_CLI_RES)
+        tri = synthetic_frames(3)
+        pos, _ = det.predict([(tri[0], tri[1], tri[2])])
+    want = f"[init] loaded {n_loaded}/{n_total} tensors from {path}"
+    res["cli"] = dict(cli_s=cli_s, n_loaded=n_loaded, n_total=n_total, peak=pos.tolist())
+    log("vitpose_train", step="c", cli_s=f"{cli_s:.1f}", init=json.dumps(want.split(" from ")[0]),
+        peak=json.dumps(np.round(pos, 2).tolist()))
+    if want not in printed:
+        raise AssertionError(f"run_detection --torch_init did not print {want!r}: {printed}")
+    if pos.shape != (1, 3) or not np.isfinite(pos).all():
+        raise AssertionError(f"the trained ViTPose checkpoint's detector gave {pos}")
+
+    # (d) world size 1: one b0 trainer step under DDP over NCCL against the same step
+    # without DDP, both made deterministic (`deterministic_step`), so that they must agree
+    # to the bit and a repeat of the plain step shows that they can
+    t = time.time()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        b0, _ = get_detector("segformerpp_b0", "ball", train=True)
+        init_weights(b0, 1)
+        b0.to(DEVICE)
+        state0 = {k: v.clone() for k, v in b0.state_dict().items()}
+        names = [n for n, _ in b0.named_parameters()]
+        images, coords, vis = batch_of(VT_DDP_BATCH)
+
+        def b0_step(ddp):
+            b0.load_state_dict(state0)
+            params = list(b0.parameters())
+            opt, ema = T.init_adam(params), [p.detach().clone() for p in params]
+            net, shard = b0, None
+            if ddp:  # the last step: the model stays wrapped after it
+                BN.sync_batch_stats(b0)
+                net = DistributedDataParallel(b0, device_ids=[torch.cuda.current_device()],
+                                              broadcast_buffers=False)
+                shard = (slice(0, VT_DDP_BATCH), VT_DDP_BATCH)
+            captured, update = {}, T.apply_update
+
+            def keep(p, g, *a, **k):
+                captured["grads"] = [x.detach().float().clone() for x in g]
+                return update(p, g, *a, **k)
+
+            for k in ops.ALL:
+                getattr(ops, k).launches = 0
+            with patched(T, apply_update=keep):
+                loss = T.train_step(net, params, opt, ema, torch.Generator().manual_seed(2),
+                                    images, coords, vis, VT_DDP_RES, EVAL_RES, cfg,
+                                    dtype=torch.bfloat16, shard=shard).item()
+            counts = {k: getattr(ops, k).launches for k in ops.ALL}
+            return loss, captured["grads"], counts
+
+        setup_s, t = time.time() - t, time.time()
+        with deterministic_step(torch):
+            plain, again, ddp = b0_step(False), b0_step(False), b0_step(True)
+        steps_s = time.time() - t
+    finally:
+        dist.destroy_process_group()
+
+    def step_err(a, b):
+        """The loss's relative error and the worst gradient tensor's (of its max |grad|)."""
+        grads = {n: hr_rel(x, y) for n, x, y in zip(names, a[1], b[1])}
+        worst = max(grads, key=grads.get)
+        return max(abs(a[0] - b[0]) / abs(b[0]), grads[worst]), worst
+
+    repeat_err, repeat_worst = step_err(again, plain)
+    ddp_err, ddp_worst = step_err(ddp, plain)
+    launches = ddp[2]
+    res["ddp"] = dict(loss=ddp[0], loss_plain=plain[0], max_rel_err=ddp_err,
+                      worst=ddp_worst, repeat_max_rel_err=repeat_err, repeat_worst=repeat_worst,
+                      launches=launches, launches_plain=plain[2], tol=VT_DDP_TOL,
+                      setup_s=setup_s, steps_s=steps_s)
+    log("vitpose_train", step="d_ddp", config=f"b0_{VT_DDP_RES[0]}x{VT_DDP_RES[1]}_b"
+        f"{VT_DDP_BATCH}", loss=f"{ddp[0]:.6g}", loss_plain=f"{plain[0]:.6g}",
+        max_rel_err=f"{ddp_err:.3g}", worst=ddp_worst, repeat_max_rel_err=f"{repeat_err:.3g}",
+        repeat_worst=repeat_worst, tol=VT_DDP_TOL, setup_s=f"{setup_s:.2f}",
+        steps_s=f"{steps_s:.2f}", launches=json.dumps({k: v for k, v in launches.items() if v}))
+    if launches != plain[2] or not all(launches[k] for k in (
+            "fused_attention_block", "fused_ln_ffn", "depthwise_conv3x3", "dwconv3x3_backward")):
+        raise AssertionError(f"the DDP step launched {launches}, the plain step {plain[2]}")
+    if repeat_err > VT_DDP_TOL or ddp_err > VT_DDP_TOL:
+        raise AssertionError(f"the DDP step differs from the plain step by {ddp_err} "
+                             f"({ddp_worst}); the plain step from itself by {repeat_err} "
+                             f"({repeat_worst}); the limit is {VT_DDP_TOL}")
+
+    # (d) a one-card mesh: run_rally and generate_dataset equal the runs without
+    mesh = make_mesh(1, devices=[DEVICE])
+    rally = synthetic_frames(VT_RALLY_FRAMES)
+    one = pipe.run_rally(rally, fps=50)
+    with patched(pipe, mesh=mesh):
+        two = pipe.run_rally(rally, fps=50)
+    same_shape = all(np.shape(two[k]) == np.shape(one[k]) for k in one)
+    rally_err = max(float(np.abs(np.asarray(two[k]) - np.asarray(one[k])).max(initial=0.0))
+                    if same_shape else float("inf") for k in ("ball", "table"))
+    n, batch = VT_DATAGEN
+    plain_dg = DG.generate_dataset(n, batch=batch, device=DEVICE,
+                                   generator=torch.Generator(device=DEVICE).manual_seed(1))
+    mesh_dg = DG.generate_dataset(n, batch=batch, mesh=mesh,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(1))
+    dg_equal = all(np.array_equal(plain_dg[k], mesh_dg[k]) for k in plain_dg)
+    res["mesh"] = dict(rally_max_px_err=rally_err, rally_shapes_equal=same_shape,
+                       datagen_equal=dg_equal)
+    log("vitpose_train", step="d_mesh", rally_max_px_err=f"{rally_err:.3g}",
+        rally_shapes_equal=same_shape, datagen_equal=dg_equal)
+    if not (same_shape and rally_err <= SLAB_TOL_PX and dg_equal):
+        raise AssertionError(f"a one-card mesh changes the result: {res['mesh']}")
+    return res
+
+
 def rally_launches(pipe, n_frames, table_stride):
     """Launches of one rally: RALLY_PER_PIECE per piece with table frames, half of each on a
     ball-only piece."""
@@ -2518,7 +2935,7 @@ def run_rally_phase(torch, ops, pipe, profile=False):
                   for a, b in zip(peaks_rgb, peaks_i420))
 
     # the slab step against each detector's own predict on the same triplets and frames:
-    # 61 frames uploaded as given, so both resize on the card from 1920x1080
+    # RALLY_EDGE_FRAMES frames uploaded as given, so both resize on the card from 1920x1080
     edge = frames[:RALLY_EDGE_FRAMES]
     T = len(edge)
     slab = pipe._rally_peaks(edge, upload_res=None)
@@ -3753,13 +4170,18 @@ def hr_rel(a, b):
 
 def unbiased_stats_fault(batch_norm):
     """The fault of nn.BatchNorm2d's rule: the running variance moved by the unbiased
-    batch variance."""
+    batch variance (the normalisation unchanged), for a caller with a sink or without."""
+    from upliftingtabletennis_torch.models.batch_norm import update_running_stats
+
     def fn(x, bn, sink=None):
-        y = batch_norm(x, bn, sink)
-        if sink is not None and bn.training:
+        pending = [] if sink is None else sink
+        y = batch_norm(x, bn, pending)
+        if bn.training:
             n = x.numel() // x.shape[-1]
-            b, mean, var = sink[-1]
-            sink[-1] = (b, mean, var * n / (n - 1))
+            b, mean, var = pending[-1]
+            pending[-1] = (b, mean, var * n / (n - 1))
+            if sink is None:
+                update_running_stats(*pending.pop())
         return y
     return fn
 
@@ -4212,7 +4634,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm b2 predict, one warm chunk of the four "
-                         "detectors, one warm b2 training step, one warm rally piece, one "
+                         "detectors, one warm b2 training step, one warm ViTPose training "
+                         "step, one warm rally piece, one "
                          "warm generate_dataset, one warm fit_physics and one warm uplifting "
                          "training step with torch.profiler (time by kernel), and the "
                          "uplifting CLI's epoch 1")
@@ -4254,6 +4677,7 @@ def main() -> int:
     Ops = kernel_ops()
     # the closed_loop phase's CPU reference steps run beside the phases until it
     closed_pre = start_closed_loop(torch)
+    vt_pre = start_vitpose_train(torch, closed_pre[2])
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen, profile=opts.profile)
     k2_entries = run_k2(torch, F, Ops, gen, profile=opts.profile)
@@ -4278,6 +4702,8 @@ def main() -> int:
     from upliftingtabletennis_torch import hub
 
     pipe = hub.full_pipeline(device=DEVICE)
+    vt_res = run_vitpose_train(torch, Ops, frames, pipe, vt_pre, profile=opts.profile)
+    torch.cuda.empty_cache()
     rally_res = run_rally_phase(torch, Ops, pipe, profile=opts.profile)
     uplifting_res = run_uplifting(torch)
     calib_res = run_calib(torch, pipe)
@@ -4378,6 +4804,9 @@ def main() -> int:
     kernels += s1_summaries(physics_res, datagen_res, fit_res)
     next(e for e in kernels if e["name"] == "simulate")["launches_generate_production"] = \
         uplift_res["generation"]["s1_launches"]
+    for entry in kernels:  # the b0 trainer step under DDP at world size 1: K1, K2, K4
+        if vt_res["ddp"]["launches"].get(entry["name"]):
+            entry["launches_ddp"] = vt_res["ddp"]["launches"][entry["name"]]
     for entry in kernels:  # the rally's main path: K1, K2, K5a and K5b over 64 frames
         if rally_res["launches"].get(entry["name"]):
             entry["launches_rally"] = rally_res["launches"][entry["name"]]
@@ -4394,7 +4823,8 @@ def main() -> int:
                        "probe": probe_res, "slice": slice_res, "hrnet": hrnet_res, "detectors": det_res,
                        "tome": tome_res, "flip": flip_res, "b0": b0_res, "k6": k6_res,
                        "vitpose": vit_res, "k4": k4_entries, "k4_backward": k4_bwd_entries,
-                       "train": train_res, "rally": rally_res, "uplifting": uplifting_res,
+                       "train": train_res, "vitpose_train": vt_res, "rally": rally_res,
+                       "uplifting": uplifting_res,
                        "calib": calib_res, "physics": physics_res, "datagen": datagen_res,
                        "fit": fit_res, "uplift_train": uplift_res,
                        "closed_loop": closed_res, "total_s": total}, f,

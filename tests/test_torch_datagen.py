@@ -192,5 +192,9 @@ def test_cli_writes_the_reference_layout_and_resimulates(tmp_path):
 
 
 def test_generate_dataset_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        DG.generate_dataset(8, mesh=object(), device="cpu")
+    """A mesh needs one generator per dp device (tests/test_torch_parallel.py runs one)."""
+    from upliftingtabletennis_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="1 generator"):
+        DG.generate_dataset(8, mesh=mesh, generator=[torch.Generator()])

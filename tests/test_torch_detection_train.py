@@ -13,7 +13,8 @@
 * the CLI end to end on a tiny TTHQ layout (b0, ball and table, 128x96, 2 steps, a
   validation pass, on the CPU), whose checkpoint `BallDetector` / `TableDetector` loads;
   `--debug_nans`, and `--debug`, which implies it, turn on autograd anomaly detection
-  (the JAX trainer's jax_debug_nans); the unported options raise.
+  (the JAX trainer's jax_debug_nans); `--data blurball` raises, and `--model vitpose`, `--dp`,
+  `--torch_init` and `--hf_backbone` do their work (a missing file raises).
 f32 throughout; JAX pinned to full-f32 matmuls (tests/conftest.py).
 """
 import glob
@@ -230,12 +231,34 @@ def test_cli_debug_nans_turns_on_anomaly_detection(fake_tthq, tmp_path, flag):
     assert glob.glob(str(tmp_path / f"runs{suffix}" / "*" / "metrics.jsonl"))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--model", "vitpose"], "item 5"), (["--data", "blurball"], "item 7"),
-    (["--dp", "2"], "item 5"), (["--torch_init", "x.pth"], "item 5"),
-    (["--hf_backbone", "x.pt"], "item 5"),
-], ids=["model", "blurball", "dp", "torch_init", "hf_backbone"])
+@pytest.mark.parametrize("flags,item", [(["--data", "blurball"], "item 7")],
+                         ids=["blurball"])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     with pytest.raises(ValueError, match=item):
         T.main(["--data_root", str(tmp_path), "--device", "cpu", *flags])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--model", "vitpose", "--resolution", "64", "64"], None, None),
+    (["--dp", "2"], ValueError, "needs 2 processes"),
+    (["--model", "wasb", "--torch_init", "missing.pth"], FileNotFoundError, "missing.pth"),
+    (["--hf_backbone", "missing.pt"], FileNotFoundError, "missing.pt"),
+], ids=["model", "dp", "torch_init", "hf_backbone"])
+def test_cli_flags_once_refused_now_do_their_work(fake_tthq, tmp_path, flags, error, match):
+    """`--model vitpose` trains; `--dp 2` in one process asks for its two processes (JAX's
+    mesh refuses more devices than it has); `--torch_init` and `--hf_backbone` read their
+    file, so a missing one raises FileNotFoundError."""
+    argv = ["--task", "ball", "--data_root", fake_tthq, "--batch_size", "2", "--num_epochs",
+            "1", "--val_iterations", "1", "--max_steps", "1", "--resolution", "64", "64",
+            "--eval_resolution", "128", "96", "--save_dir", str(tmp_path / "ckpt"),
+            "--logdir", str(tmp_path / "runs"), "--device", "cpu", *flags]
+    if "--model" not in flags:
+        argv += ["--model", "segformerpp_b0"]
+    if error is None:
+        T.main(argv)
+        assert glob.glob(str(tmp_path / "ckpt" / "ball_vitpose_*" / "model.pt"))
+        return
+    with pytest.raises(error, match=match):
+        T.main(argv)
+    assert not glob.glob(str(tmp_path / "ckpt" / "*"))

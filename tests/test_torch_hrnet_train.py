@@ -230,8 +230,12 @@ def test_factory_builds_trainable_hrnets_and_refuses_vitpose():
         model, res = get_detector(name, task, train=True, remat=True)
         assert model.training and model.model.remat and res == (1280, 704)
         assert not get_detector(name, task)[0].training
-    with pytest.raises(ValueError, match="item 5"):
-        get_detector("vitpose", "ball", train=True)
+    # ViTPose trains too (tests/test_torch_vitpose_train.py); a task it lacks still raises
+    model, res = get_detector("vitpose", "ball", train=True)
+    assert model.training and res == (1152, 640)
+    assert not get_detector("vitpose", "ball")[0].training
+    with pytest.raises(ValueError, match="task"):
+        get_detector("vitpose", "both", train=True)
 
 
 @pytest.fixture(scope="module")

@@ -194,8 +194,11 @@ def test_default_device_raises_without_cuda(monkeypatch, build):
 
 
 def test_pipeline_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        interface.TableTennisPipeline(mesh=object(), device="cpu")
+    from upliftingtabletennis_torch.parallel.mesh import make_mesh
+
+    # the mesh is ported (tests/test_torch_parallel.py); a chunk its dp does not divide
+    with pytest.raises(ValueError, match="divisible"):
+        interface.TableTennisPipeline(chunk=8, mesh=make_mesh(3, devices=["cpu"] * 3))
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         hub.full_pipeline(weights_url="file:///weights.zip", device="cpu")
 

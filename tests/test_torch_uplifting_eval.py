@@ -170,8 +170,10 @@ def test_load_uplifting_reads_port_checkpoints_and_refuses_reference_pt(tmp_path
     assert tm == "local"
     for a, b in zip(loaded.state_dict().values(), model.state_dict().values()):
         assert torch.equal(a, b)
+    # a .pt without its .json is read as a reference checkpoint
+    # (tests/test_torch_port_torch.py): a bare state dict is not one
     torch.save(model.state_dict(), tmp_path / "reference.pt")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(KeyError, match="model_state_dict"):
         EV.load_uplifting(str(tmp_path / "reference.pt"), "cpu")
 
 

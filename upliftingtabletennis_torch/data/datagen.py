@@ -376,22 +376,39 @@ def generate_candidates(n: int, mode: str, direction: str,
 
 def generate_dataset(num_trajectories: int, mode: str = "intermediate",
                      direction: str = "left_to_right", batch: int = 4096,
-                     max_seconds: float = 0.0, mesh=None,
-                     generator: Optional[torch.Generator] = None, device="cuda") -> dict:
+                     max_seconds: float = 0.0, mesh=None, generator=None,
+                     device="cuda") -> dict:
     """Sample batches until `num_trajectories` are accepted (a host loop), keeping each
     batch's accepted rows by a gather on the device. Returns numpy arrays cut to
     num_trajectories: positions, velocities, rotations (N, 500, 3), frame_valid (N, 500),
     bounces (N, MAX_HITS), n_bounces (N,) and times (500,); and the counts `candidates`
     (simulated) and `accepted_total` (accepted, before the per-batch and final cuts). max_seconds > 0 bounds the
     wall time after the first batch and returns what was accepted so far. `generator`
-    (on `device`) defaults to seed 0."""
-    if mesh is not None:
-        raise NotImplementedError("multi-card datagen (`mesh`) is not ported: ROADMAP queue 1, "
-                                  "item 5")
+    (on `device`) defaults to seed 0.
+
+    mesh: a ('dp', 'mp') `parallel.mesh.Mesh`: each dp device draws its own batch of
+    `batch` candidates per iteration from its own generator and compacts it, and the
+    accepted rows are concatenated in device order (`device` is then ignored).
+    `generator` is then one `torch.Generator` per dp device, on it (a single generator
+    serves a one-device mesh); the default seeds device i's with i."""
     _check_mode(mode)
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    if mesh is not None:
+        from upliftingtabletennis_torch.parallel.mesh import dp_devices
+
+        devs = dp_devices(mesh)
+        if generator is None:
+            gens = [torch.Generator(device=d).manual_seed(i) for i, d in enumerate(devs)]
+        elif isinstance(generator, torch.Generator):
+            gens = [generator]
+        else:
+            gens = list(generator)
+        if len(gens) != len(devs):
+            raise ValueError(f"{len(gens)} generator(s) for a mesh of {len(devs)} dp devices")
+    else:
+        dev = resolve_device(device)
+        devs = [dev]
+        gens = [generator if generator is not None
+                else torch.Generator(device=dev).manual_seed(0)]
     out = {k: [] for k in _FIELDS}
     times, total, t0 = None, 0, None
     candidates = accepted = 0
@@ -399,16 +416,19 @@ def generate_dataset(num_trajectories: int, mode: str = "intermediate",
     while total < num_trajectories:
         if max_seconds and t0 is not None and time.perf_counter() - t0 > max_seconds:
             break
-        cand = generate_candidates(batch, mode, direction, generator, dev)
-        idx = torch.nonzero(cand["accept"])[:, 0]
-        candidates, accepted = candidates + batch, accepted + len(idx)
-        idx = idx[:max_keep]
+        # every device's batch is launched before any of them is read back
+        cands = [generate_candidates(batch, mode, direction, g, d) for d, g in zip(devs, gens)]
+        kept = [torch.nonzero(cand["accept"])[:, 0] for cand in cands]
+        candidates += batch * len(cands)
+        accepted += sum(len(idx) for idx in kept)
         if t0 is None:
             t0 = time.perf_counter()  # the first batch's build is not budget
-        for k in out:
-            out[k].append(cand[k][idx].cpu().numpy())
-        times = cand["times"].cpu().numpy()
-        total += len(idx)
+        for cand, idx in zip(cands, kept):
+            idx = idx[:max_keep]
+            for k in out:
+                out[k].append(cand[k][idx].cpu().numpy())
+            times = cand["times"].cpu().numpy()
+            total += len(idx)
     res = {k: np.concatenate(v)[:num_trajectories] for k, v in out.items()}
     res.update(times=times, candidates=candidates, accepted_total=accepted)
     return res

@@ -11,7 +11,10 @@ scaled by --scale, one stacked `.npz` store per (mode, direction) shard at
 `<out>/<mode>/<direction>.npz` (`data/synthetic.save_store_npz`, the JAX package's layout:
 either package loads the other's shards). Each candidate batch is one launch of S1 on the
 card (`data/datagen.generate_dataset`); the draws come from one `torch.Generator` seeded
-with --seed, shard after shard (an existing shard is skipped and draws nothing).
+with --seed, shard after shard (an existing shard is skipped and draws nothing). With
+--dp and more than one card, each candidate batch is drawn on every card (a dp mesh over
+all of them, `parallel/mesh.py`), card i from its own generator seeded with --seed + i;
+with one card --dp changes nothing, as in JAX.
 
     python -m upliftingtabletennis_torch.data.generate_production --out <root> --scale 1.0
 """
@@ -54,24 +57,38 @@ def _parser():
                    help="comma-separated modes the time cap applies to (final_win accepts "
                         "about 0.2%% of its candidates)")
     p.add_argument("--dp", action="store_true",
-                   help="shard each candidate batch over all cards (not ported: raises)")
+                   help="simulate --batch candidates on every card per iteration (a dp "
+                        "mesh over all cards; one card: no change)")
     p.add_argument("--device", type=str, default="cuda")
     return p
+
+
+def _dp_devices(device: torch.device):
+    """The devices --dp spreads over: every card for a CUDA run, the CPU alone else."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def main(argv=None):
     """Generate the shards; returns one record per shard written: mode, direction,
     accepted, requested, seconds, trajectories_per_s, candidates."""
     args = _parser().parse_args(argv)
-    if args.dp:
-        raise NotImplementedError("--dp (datagen over several cards) is not ported: ROADMAP "
-                                  "queue 1, item 5")
     from upliftingtabletennis_torch.data import datagen as DG
     from upliftingtabletennis_torch.data import synthetic as SYN
 
     dev = resolve_device(args.device)
     only = set(args.modes.split(",")) if args.modes else None
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    mesh, devices = None, _dp_devices(dev) if args.dp else [dev]
+    if len(devices) > 1:
+        from upliftingtabletennis_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=devices)
+        gen = [torch.Generator(device=d).manual_seed(args.seed + i)
+               for i, d in enumerate(devices)]
+        print(f"[mesh] datagen sharded over {len(devices)} devices", flush=True)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
     shards = []
     t_start = time.perf_counter()
     for mode, n_ref in RECIPE:
@@ -85,8 +102,9 @@ def main(argv=None):
                 continue
             t0 = time.perf_counter()
             cap = args.max_seconds_per_shard if mode in args.capped_modes.split(",") else 0.0
+            sharded = {} if mesh is None else {"mesh": mesh}
             res = DG.generate_dataset(n, mode, direction, batch=args.batch, max_seconds=cap,
-                                      generator=gen, device=dev)
+                                      generator=gen, device=dev, **sharded)
             store = SYN.store_from_datagen(res)
             SYN.save_store_npz(out, store)
             dt = time.perf_counter() - t0

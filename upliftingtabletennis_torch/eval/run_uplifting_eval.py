@@ -30,12 +30,14 @@ EVAL_W, EVAL_H = 1920, 1080
 
 def load_uplifting(checkpoint: str, device="cuda"):
     """(model on `device` in eval mode, transform_mode) from a port checkpoint (a state dict
-    with its `.json`). A `.pt` file of the original reference raises: its weight port is
-    ROADMAP queue 1, item 7."""
+    with its `.json`), or from a `.pt` checkpoint of the original reference (no `.json`
+    beside it), whose weights `utils/port_torch.py` maps."""
     if (os.path.isfile(checkpoint) and checkpoint.endswith(".pt")
             and not os.path.isfile(checkpoint + ".json")):
-        raise NotImplementedError("reference .pt checkpoints need utils/port_torch.py, which "
-                                  "is not ported yet (ROADMAP queue 1, item 7)")
+        from upliftingtabletennis_torch.pipeline.interface import UpliftingModel
+
+        up = UpliftingModel.from_reference_checkpoint(checkpoint, device=device)
+        return up.model, up.transform_mode
     from upliftingtabletennis_torch.utils.checkpoint import load_model_from_checkpoint
 
     model, _, _, info = load_model_from_checkpoint(checkpoint)

@@ -38,9 +38,10 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     plain versions of the model's kernels, and ViTPose's attention in its einsum
     form in place of `F.scaled_dot_product_attention` (for comparisons only).
     train=True builds the model in training mode: a SegFormer's head BatchNorms, and
-    every BatchNorm of WASB and the table HRNet, on batch statistics. remat (the HRNet
-    family, as in the JAX factory) checkpoints each HRNet block; SegFormer ignores it,
-    as the JAX factory does. ViTPose's trainer is not ported yet.
+    every BatchNorm of WASB and the table HRNet, on batch statistics; ViTPose with
+    stochastic depth (rate 0.3) and its head's BatchNorms on batch statistics. remat (the
+    HRNet family, as in the JAX factory) checkpoints each HRNet block; SegFormer and
+    ViTPose ignore it, as the JAX factory does.
     """
     if task not in ("ball", "table"):
         raise ValueError(f"unknown task {task!r}")
@@ -50,15 +51,12 @@ def get_detector(name: str, task: str = "ball", in_frames: int = None,
     out_channels = 1 if task == "ball" else 13
     frames = in_frames if in_frames is not None else (3 if task == "ball" else 1)
     is_segformer = name in ("segformerpp_b0", "segformerpp_b2")
-    if train and name == "vitpose":
-        raise ValueError("training 'vitpose' is not ported yet (ROADMAP queue 1 item 5a: "
-                         "stochastic depth and the head's BatchNorms on batch statistics)")
     if is_segformer:
         model = SegFormerNet(out_channels, frames, name.split("_")[1], classify_invisible,
                              head_style=head_style, decoder_dim=decoder_dim, kernels=kernels,
                              train=train)
     elif name == "vitpose":
-        model = VitPoseNet(out_channels, frames, "small", res, sdpa=kernels)
+        model = VitPoseNet(out_channels, frames, "small", res, sdpa=kernels, train=train)
     elif name == "wasb":
         if task != "ball":
             raise ValueError("wasb is a ball detector (task='ball')")

@@ -41,11 +41,14 @@ filtered, and the uplifting model runs when at least 2 ball detections survive.
 filtered 2D track by differentiable-physics fitting (`core/fitting.py`, the S1
 integrator kernel), optionally seeded with the uplifting model's output.
 
-Not ported: `UpliftingModel.from_reference_checkpoint` (no reference `.pt` in the
-repo) and the `mesh` argument (ROADMAP queue 1, item 5).
+`UpliftingModel.from_reference_checkpoint` reads the reference's own `.pt` uplifting
+checkpoints (`utils/port_torch.py`). `TableTennisPipeline(mesh=...)` spreads each piece's
+frames over the mesh's dp devices (`parallel/mesh.py`), each with its own replica of the
+four detectors; the peaks come back to the first device in frame order.
 """
 from __future__ import annotations
 
+import copy
 from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Optional, Sequence, Union
 
@@ -143,6 +146,15 @@ class _Detector:
         x = normalize_image(x).to(self.dtype)
         heat = flip_test_heatmaps(self._forward, x) if self.flip_test else self._forward(x)
         return heat.permute(0, 3, 1, 2).float()
+
+    def replica(self, model, device) -> "_Detector":
+        """This detector around `model`, a copy of its model on `device` (`parallel.mesh.
+        replicate`); the detector itself when `model` is its own."""
+        if model is self.model:
+            return self
+        twin = copy.copy(self)
+        twin.model, twin.device = model, torch.device(device)
+        return twin
 
     def peaks_on_device(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, H, W, C_in) in [0, 255] on self.device -> peaks (B, C_out, 3) on the
@@ -265,6 +277,19 @@ class UpliftingModel:
             self.transform_mode = info.get("transform_mode", transform_mode)
         self.model.eval().to(self.device)
 
+    @classmethod
+    def from_reference_checkpoint(cls, path: str, transform_mode: str = "global",
+                                  device="cuda") -> "UpliftingModel":
+        """The model of a reference `.pt` uplifting checkpoint (`utils/port_torch.py`), its
+        architecture from the checkpoint's additional_info."""
+        from upliftingtabletennis_torch.utils.port_torch import load_reference_checkpoint
+
+        state, info = load_reference_checkpoint(path)
+        return cls(state, name=info.get("name", "connectstage"), size=info.get("size", "large"),
+                   mode=info.get("tabletoken_mode", "dynamic"),
+                   time_rotation=info.get("time_rotation", "new"),
+                   transform_mode=info.get("transform_mode", transform_mode), device=device)
+
     @torch.no_grad()
     def predict_without_normalization(self, ball, table, mask, times):
         """Normalised, padded inputs (`filters.uplifting_inputs`): ball (1, L, 2), table
@@ -292,15 +317,25 @@ class TableTennisPipeline:
     the uplifting model.
 
     checkpoints: {"ball_main", "ball_aux", "table_main", "table_aux", "uplifting"} ->
-    port checkpoints; a missing entry gets seeded random weights."""
+    port checkpoints; a missing entry gets seeded random weights.
+
+    mesh: a ('dp', 'mp') `parallel.mesh.Mesh`, or None for one device. With a mesh the
+    pipeline runs on its first dp device, and every piece's chunk of frames is split in
+    equal shares over the dp devices (chunk % dp must be 0), each share through that
+    device's replica of the detectors (`device` is then ignored)."""
 
     LOOKAHEAD = 3  # pieces uploaded ahead of the one the detectors run on
 
     def __init__(self, checkpoints: Optional[dict] = None, chunk: int = 8, mesh=None,
                  device="cuda"):
         if mesh is not None:
-            raise NotImplementedError("multi-card inference (`mesh`) is not ported: ROADMAP "
-                                      "queue 1, item 5")
+            from upliftingtabletennis_torch.parallel.mesh import dp_devices
+
+            n_dp = int(mesh.shape["dp"])
+            if chunk % n_dp:
+                raise ValueError(f"chunk ({chunk}) must be divisible by the mesh 'dp' axis "
+                                 f"({n_dp}) for even frame sharding")
+            device = dp_devices(mesh)[0]
         ck = checkpoints or {}
         self.ball_detector = BallDetector("segformerpp_b2", ck.get("ball_main"), chunk,
                                           device=device)
@@ -311,10 +346,33 @@ class TableTennisPipeline:
                                                 device=device)
         self.uplifting_model = UpliftingModel(ck.get("uplifting"), device=device)
         self.KEYPOINT_VISIBLE = 1
+        self.mesh = mesh
 
     @property
     def device(self) -> torch.device:
         return self.ball_detector.device
+
+    def _replicas(self):
+        """[(device, (ball main, ball aux, table main, table aux))] per dp device of the
+        mesh, the first the pipeline's own detectors; [] without a mesh (or a pipeline
+        built by `__new__`). Made at the first call, after the caller has set the
+        detectors."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None:
+            return []
+        from upliftingtabletennis_torch.parallel.mesh import dp_devices, replicate
+
+        dets = self._detectors()
+        key = tuple(id(d) for d in dets)
+        cached = self.__dict__.get("_replica_cache")
+        if cached is None or cached[0] != key:
+            unique = list({id(x): x for x in dets}.values())  # one copy of a detector in two roles
+            reps = []
+            for d, models in zip(dp_devices(mesh), replicate(mesh, [x.model for x in unique])):
+                twins = {id(x): x.replica(m, d) for x, m in zip(unique, models)}
+                reps.append((d, tuple(twins[id(x)] for x in dets)))
+            self._replica_cache = cached = (key, reps)
+        return cached[1]
 
     def _detectors(self):
         return (self.ball_detector, self.ball_detector_aux, self.table_detector,
@@ -326,11 +384,32 @@ class TableTennisPipeline:
         (prev, cur, next) pieces; idx3 (3, chunk) local triplet indices; table_idx
         (chunk,) local table frames, None for a ball-only piece. -> peaks (chunk, C, 3) of
         each detector (ball main, ball aux[, table main, table aux]), on the device."""
+        replicas = self._replicas()
+        if len(replicas) > 1:
+            return self._sharded_step(replicas, window, idx3, table_idx)
         triplets = torch.cat([window[idx3[0]], window[idx3[1]], window[idx3[2]]], dim=-1)
         outs = self._pair(self.ball_detector, self.ball_detector_aux, triplets)
         if table_idx is not None:
             outs += self._pair(self.table_detector, self.table_detector_aux, window[table_idx])
         return outs
+
+    def _sharded_step(self, replicas, window, idx3, table_idx):
+        """`_slab_step` with the chunk's frames split in equal shares over the replicas
+        (`parallel.mesh.shard_batch`): the window goes whole to each device, each share's
+        peaks come back to the first."""
+        from upliftingtabletennis_torch.parallel.mesh import replicate, shard_batch
+
+        shares = shard_batch(self.mesh, (idx3.T, table_idx))
+        parts = []
+        for (_, (bm, ba, tm, ta)), win, (idx, t_idx) in zip(replicas,
+                                                             replicate(self.mesh, window), shares):
+            triplets = torch.cat([win[idx[:, 0]], win[idx[:, 1]], win[idx[:, 2]]], dim=-1)
+            outs = self._pair(bm, ba, triplets)
+            if t_idx is not None:
+                outs += self._pair(tm, ta, win[t_idx])
+            parts.append(outs)
+        home = self.device
+        return [torch.cat([p[j].to(home) for p in parts]) for j in range(len(parts[0]))]
 
     @staticmethod
     def _pair(main, aux, images):

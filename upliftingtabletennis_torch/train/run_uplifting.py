@@ -23,8 +23,9 @@ from `jax.random`; checkpoints are the port's (`utils/checkpoint.py`: a state di
 `load_model_from_checkpoint` and `hub.uplifting(checkpoint=...)` read, `latest` the full
 state (parameters, EMA, both Adam moments, the step) with the epoch and the best metrics;
 scalars go to stdout and to `<logdir>/<identifier>/metrics.jsonl` (TensorBoard and the
-confusion / ROC figures wait for ROADMAP queue 1, item 7); one card (multi-card training
-is item 5).
+confusion / ROC figures wait for ROADMAP queue 1, item 7); one process on one card (the
+JAX trainer's data parallelism over every device waits for ROADMAP queue 1, item 7; the
+detector trainer's is `run_detection --dp`).
 """
 from __future__ import annotations
 
