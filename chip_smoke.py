@@ -159,11 +159,17 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             (`core/physics.py`) on the card: forward mode on 8,192 "intermediate" candidates
             of each direction over 500 frames, tangent mode on fit_physics's 32 starts over
             502 frames; per trajectory |dr| <= 1e-4 m, |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s
-            and dr/dq within 1e-3 of its largest, all but S1_KNIFE_EDGES; planted faults (the
-            net left out of the contacts, one tangent direction zeroed) that must fail those
-            limits; ms per call (and back to back), the plain version's time, the bound (bytes,
+            and dr/dq within 1e-3 of its largest, all but S1_KNIFE_EDGES, and every output
+            bit-equal at both shapes; planted faults (the net left out of the contacts, one
+            tangent direction zeroed) that must fail those limits; ms per call (and back to
+            back) and SM cycles per step, the plain version's time, the bound (bytes,
             operations, and the serial chain worked out from the code at the latencies of
-            physics.cu's op_latency_kernel); the kernel on one trajectory, beside it;
+            physics.cu's op_latency_kernel); the kernel on one trajectory, beside it; the
+            tangent also at the physics-fit evaluation's 512 starts; ptxas' registers and
+            spills and the SASS facts of each step loop (`ptxas=`, `sass=`); the step's
+            anatomy (`anatomy=`: a one-thread %clock64 probe of the flight, the contact
+            tests, the bounces and the frame stores) and the fast division and square root
+            against IEEE on 2^30 operand pairs (`fast_ops=`, gated);
 21. datagen `generate_dataset("intermediate")` at batch 8,192 until 1,024 accepted, cold and
             warm: trajectories/s, the acceptance rate, 1 S1 launch per batch; the first
             batch's candidates on the CPU's plain path against the card's (accept mask and
@@ -410,16 +416,17 @@ S1_BATCH, S1_FRAMES = 8192, 500
 FIT_STARTS, FIT_FRAMES = 32, 502
 # the kernel against its plain version, per trajectory over the whole run: |dr| <= 1e-4 m,
 # |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s, and dr/dq within 1e-3 of the trajectory's largest
-# |dr/dq|. The two run the same float32 operations in the same order (bit-equal where
-# PyTorch's elementwise operations round correctly: 0 differing trajectories so far); a
-# contact that they saw one step apart on a knife-edge crossing would move a trajectory by
-# far more than the limit, and at most this many trajectories per call may do so
+# |dr/dq|. The two run the same float32 operations in the same order, and the phase also
+# requires every output bit-equal (`bitwise_differing` 0) at both shapes; a contact that
+# they saw one step apart on a knife-edge crossing would move a trajectory by far more
+# than the limit, and at most this many trajectories per call may do so
 S1_ATOL = (1e-4, 1e-3, 1e-2)
 S1_JAC_RTOL = 1e-3
 S1_KNIFE_EDGES = {"forward": 8, "tangent": 1}  # of 8,192 and of 32 trajectories
 S1_TIMED_CALLS = 10
 S1_LAT_CHAIN = 4096  # dependent operations per kind in physics.cu's op_latency_kernel
 S1_FAULT_DIRECTION = 4  # the planted tangent fault zeroes d r / d v0_y
+S1_EVAL_STARTS = 512  # run_physics_fit_eval's tangent launches: 16 tracks x 32 starts
 # the fit: fit_physics at its defaults (32 starts, 250 Adam and 12 LM steps), each fit
 # cold and warm, on tests/test_fitting.py's topspin and backspin states observed through
 # the simulation camera at 50 fps, over the JAX tests' window (24 detections, 0.46 s) and
@@ -3141,6 +3148,183 @@ def s1_op_latency(torch):
     return {k: c / S1_LAT_CHAIN for k, c in zip(("add", "mul", "div", "sqrt"), best)}
 
 
+def s1_ptxas(report):
+    """{kernel: {registers, spill_stores, spill_loads, stack}} of physics.cu's kernels
+    and out-of-line functions, from nvcc's `-Xptxas -v` report."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
+                      line.strip())
+        if m:
+            name = s1_short_name(m.group(1))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def s1_short_name(mangled):
+    """forward_kernel, tangent_kernel, exact_step<Real>, exact_step<Dual>, or None."""
+    for kernel in ("forward_kernel", "tangent_kernel"):
+        if kernel in mangled:
+            return kernel
+    if "exact_step" in mangled:
+        return "exact_step<Dual>" if "Dual" in mangled else "exact_step<Real>"
+    return None
+
+
+S1_SASS_KINDS = ("FFMA", "FMUL", "FADD", "MUFU", "FCHK", "CALL", "BSSY", "BSYNC", "BRA", "LDL",
+                 "STL", "LDC", "ULDC", "LDG", "LD", "STG", "ST", "STS")
+
+
+def s1_sass_facts(sass):
+    """What the SASS of physics.cu's kernels shows: per function, its instruction count
+    and, for its step loop (the innermost backward branch whose span holds at least 100
+    float instructions), the span in bytes and instructions, the count of each kind in
+    S1_SASS_KINDS, and `const_operands`: instructions that read a constant-bank operand
+    (c[bank][offset]) directly."""
+    import re
+
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = s1_short_name(m.group(1))
+            if name:
+                funcs[name] = {"labels": {}, "ins": [], "pending": []}
+            continue
+        if not name:
+            continue
+        f = funcs[name]
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            f["pending"].append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in f["pending"]:
+                f["labels"][label] = addr
+            f["pending"] = []
+            f["ins"].append((addr, m.group(2)))
+    facts = {}
+    for name, f in funcs.items():
+        ins = [(a, t, re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0])
+               for a, t in f["ins"]]
+        loops = []
+        for a, t, op in ins:
+            if op != "BRA":
+                continue
+            m = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", t)
+            target = (f["labels"].get(m.group(1)) if m and m.group(1)
+                      else int(m.group(2), 16) if m else None)
+            if target is not None and target <= a:
+                body = [x for x in ins if target <= x[0] <= a]
+                fp = sum(x[2] in ("FFMA", "FMUL", "FADD") for x in body)
+                loops.append((a - target + 16, body, fp))
+        entry = {"instructions": len(ins)}
+        hot = [lp for lp in loops if lp[2] >= 100]
+        if hot:
+            span, body, _ = min(hot, key=lambda lp: lp[0])
+            counts = collections.Counter(x[2] for x in body)
+            entry["step_loop"] = {
+                "bytes": span, "instructions": len(body),
+                **{k: counts.get(k, 0) for k in S1_SASS_KINDS},
+                "const_operands": sum("c[0x" in x[1] and x[2] not in ("LDC", "ULDC")
+                                      for x in body)}
+        facts[name] = entry
+    return facts
+
+
+def s1_sass(_build, path):
+    """cuobjdump -sass of a built library ("" without the tool)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return ""
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+S1_ANATOMY_STEPS = 1000
+S1_ANATOMY_MODES = ("forward_ieee", "forward", "tangent_ieee", "tangent")
+
+
+def s1_anatomy(torch, lib, state):
+    """physics.cu's anatomy_kernel on one trajectory (state: r, v, w of 3 floats) over
+    S1_ANATOMY_STEPS steps, a frame every 2: SM cycles per step of each part (the flight,
+    the contact tests, the bounces, the frame stores; `loop` the whole), for the kernels'
+    step (forward, tangent) and for the same step with IEEE divisions and square roots
+    throughout (*_ieee); the steps that hit a surface; the SM clock over the loop
+    (%clock64 over %globaltimer); the least of 3 calls."""
+    import ctypes
+
+    from upliftingtabletennis_torch.core import physics as P
+    from upliftingtabletennis_torch.ops import _build
+    from upliftingtabletennis_torch.ops import physics as S1
+
+    fn = lib.uttk_physics_anatomy
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    r0, v0, w0 = (torch.tensor(x, dtype=torch.float32, device=DEVICE) for x in state)
+    out = torch.zeros(S1_ANATOMY_STEPS // 2 + 1, 9, dtype=torch.float32, device=DEVICE)
+    cycles = torch.zeros(7, dtype=torch.int64, device=DEVICE)
+    want = S1.simulate(P.BallState(r0[None], v0[None], w0[None]), S1_ANATOMY_STEPS // 2 + 1,
+                       first_step=False)
+    want = torch.cat([x[:, 0] for x in want], -1)
+    res = {}
+    for mode, name in enumerate(S1_ANATOMY_MODES):
+        best = None
+        for _ in range(3):
+            status = _build.call_on_device(cycles, lambda stream: fn(
+                r0.data_ptr(), v0.data_ptr(), w0.data_ptr(), mode, S1_ANATOMY_STEPS, 2,
+                S1._consts(P.DT), out.data_ptr(), cycles.data_ptr(), stream))
+            _build.check(lib, status, "S1 anatomy")
+            got = cycles.tolist()
+            best = got if best is None or got[4] < best[4] else best
+        parts = dict(zip(("flight", "tests", "bounce", "frame_store", "loop"),
+                         (c / S1_ANATOMY_STEPS for c in best[:5])))
+        res[name] = {**parts, "steps_that_hit": best[5], "sm_ghz": best[4] / best[6],
+                     "frames_equal_kernel": bool(torch.equal(out, want))}
+    return res
+
+
+S1_FAST_OPS_PAIRS = 1 << 30
+
+
+def s1_fast_ops_check(torch, lib):
+    """physics.cu's fast_ops_check_kernel over S1_FAST_OPS_PAIRS operand pairs: the fast
+    division and square root of the kernels' hot step against __fdiv_rn and __fsqrt_rn.
+    Fails if any result outside NaN (the exact step's cue) differs in a bit."""
+    import ctypes
+
+    from upliftingtabletennis_torch.ops import _build
+
+    fn = lib.uttk_physics_fast_ops_check
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    counts = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+    status = _build.call_on_device(counts, lambda stream: fn(S1_FAST_OPS_PAIRS, 12345,
+                                                             counts.data_ptr(), stream))
+    _build.check(lib, status, "S1 fast ops check")
+    res = dict(zip(("div_differing", "div_to_exact_step", "sqrt_differing",
+                    "sqrt_to_exact_step"), counts.tolist()), pairs=S1_FAST_OPS_PAIRS)
+    if res["div_differing"] or res["sqrt_differing"]:
+        raise AssertionError(f"S1: the fast division or square root differs from IEEE: {res}")
+    return res
+
+
 def s1_chain(lat, mode, steps=64):
     """S1's serial chain and float operations per step, worked out from the code: the
     plain version's flight step (core/physics.py `_implicit_velocity_update`, then
@@ -3226,6 +3410,14 @@ def s1_chain(lat, mode, steps=64):
     return (ready((r, v, w)) - mid) / (steps - steps // 2), count[0]
 
 
+def s1_cycles_per_step(entry, steps):
+    """SM cycles per step at the boost clock of the timed calls: per call, back to back,
+    and of one trajectory alone where it was timed."""
+    keys = {"ms": "cycles_per_step", "ms_pipelined": "cycles_per_step_pipelined",
+            "one_trajectory_ms": "one_trajectory_cycles_per_step"}
+    return {c: entry[k] * 1e-3 * SM_CLOCK_HZ / steps for k, c in keys.items() if k in entry}
+
+
 def s1_bound(mode, n, steps, out_bytes, in_bytes, lat):
     """S1's bound: the largest of its bytes over the HBM rate, its float operations over
     the f32 rate and its serial chain (`s1_chain`) at the boost clock. `bound_by` says
@@ -3272,20 +3464,32 @@ def fit_track(torch, state, n_obs=FIT_OBS, stride=FIT_STRIDE):
     return (obs.cpu().numpy(), times, r.cpu().numpy(), Mint.cpu().numpy(), Mext.cpu().numpy())
 
 
-def run_physics(torch):
+def run_physics(torch, ptxas_report=""):
     """S1 against its plain version on the card, at the datagen and the fit shapes, with
-    the planted faults; ms per call, the bound and the plain version's time."""
+    the planted faults; ms per call, cycles per step, the bound and the plain version's
+    time; ptxas' registers and spills and the SASS facts of the step loops, the step
+    anatomy probe and the check of the fast division and square root."""
     import numpy as np
 
     from upliftingtabletennis_torch.core import fitting as FIT
     from upliftingtabletennis_torch.core import physics as P
     from upliftingtabletennis_torch.data import datagen as DG
+    from upliftingtabletennis_torch.ops import _build
     from upliftingtabletennis_torch.ops import physics as S1
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    lib = _build.library("physics.cu")
+    res = {"ptxas": s1_ptxas(ptxas_report) if ptxas_report else "not rebuilt in this run",
+           "sass": s1_sass_facts(s1_sass(_build, _build._lib_path("physics.cu")))}
+    for key in ("ptxas", "sass"):
+        log("physics", **{key: json.dumps(res[key])})
     lat = s1_op_latency(torch)
     log("physics", op_latency_cycles=json.dumps(lat))
-    res = {"forward": [], "op_latency_cycles": lat}
+    res.update(op_latency_cycles=lat, fast_ops=s1_fast_ops_check(torch, lib),
+               anatomy=s1_anatomy(torch, lib, FIT_STATES["topspin"]))
+    for key in ("fast_ops", "anatomy"):
+        log("physics", **{key: json.dumps(res[key])})
+    res["forward"] = []
     for direction in DG.DIRECTIONS:
         s0 = DG.sample_initial_conditions(S1_BATCH, "intermediate", direction, gen, DEVICE)
         got = S1.simulate(s0, S1_FRAMES)
@@ -3301,9 +3505,9 @@ def run_physics(torch):
                  "over_limit": over, "bitwise_differing": differ,
                  "max_abs_err": {k: float(e.max()) for k, e in zip("rvw", errs)},
                  "plain_ms": plain_ms}
-        if over > S1_KNIFE_EDGES["forward"]:
+        if over > S1_KNIFE_EDGES["forward"] or differ:
             raise AssertionError(f"S1 forward ({direction}): {over} trajectories over the "
-                                 f"limits {S1_ATOL}: {entry}")
+                                 f"limits {S1_ATOL}, {differ} not bit-equal: {entry}")
         if direction == DG.DIRECTIONS[0]:  # the planted fault: the net left out
             no_net = no_net_table(P, s0.r.dtype, s0.r.device, P.DT)
             with patched(P, _table=lambda *_: no_net):
@@ -3322,6 +3526,7 @@ def run_physics(torch):
                                              iters=S1_TIMED_CALLS)
         entry.update(s1_bound("forward", S1_BATCH, steps, 9 * S1_FRAMES * S1_BATCH * 4,
                               9 * S1_BATCH * 4, lat))
+        entry.update(s1_cycles_per_step(entry, steps))
         res["forward"].append(entry)
         log("physics", mode="forward", **{k: (f"{v:.4f}" if isinstance(v, float) else
                                               json.dumps(v)) for k, v in entry.items()})
@@ -3358,7 +3563,7 @@ def run_physics(torch):
              "max_abs_err": {"r": float(r_err.max()), "jac": float((jac - jp).abs().max())},
              "max_rel_jac_err": float(j_rel.max()), "fault_direction_zeroed_over_limit": caught,
              "plain_ms": plain_ms}
-    if entry["over_limit"] > S1_KNIFE_EDGES["tangent"]:
+    if entry["over_limit"] > S1_KNIFE_EDGES["tangent"] or entry["bitwise_differing"]:
         raise AssertionError(f"S1 tangent: {entry}")
     if caught <= S1_KNIFE_EDGES["tangent"]:
         raise AssertionError(f"S1 tangent: the planted fault (direction {S1_FAULT_DIRECTION} "
@@ -3369,8 +3574,19 @@ def run_physics(torch):
     one = P.BallState(*(x[:1].contiguous() for x in st))
     entry["one_trajectory_ms"] = time_ms(torch, lambda: S1.simulate_tangent(one, *args),
                                          iters=S1_TIMED_CALLS)
-    entry.update(s1_bound("tangent", FIT_STARTS, 1 + (FIT_FRAMES - 1) * 2,
-                          40 * FIT_FRAMES * FIT_STARTS * 3, 9 * FIT_STARTS * 4, lat))
+    steps = 1 + (FIT_FRAMES - 1) * 2
+    entry.update(s1_bound("tangent", FIT_STARTS, steps, 40 * FIT_FRAMES * FIT_STARTS * 3,
+                          9 * FIT_STARTS * 4, lat))
+    entry.update(s1_cycles_per_step(entry, steps))
+    # the physics-fit evaluation's batch: 16 tracks x 32 starts
+    wide = P.BallState(*(x.repeat(S1_EVAL_STARTS // FIT_STARTS, 1) for x in st))
+    entry["eval_batch"] = {"n": S1_EVAL_STARTS, "frames": FIT_FRAMES,
+                           "ms": time_ms(torch, lambda: S1.simulate_tangent(wide, *args),
+                                         iters=S1_TIMED_CALLS),
+                           "ms_pipelined": pipelined_ms(
+                               torch, lambda: S1.simulate_tangent(wide, *args),
+                               reps=S1_TIMED_CALLS)}
+    entry["eval_batch"].update(s1_cycles_per_step(entry["eval_batch"], steps))
     res["tangent"] = entry
     log("physics", mode="tangent", **{k: (f"{v:.4f}" if isinstance(v, float) else json.dumps(v))
                                       for k, v in entry.items()})
@@ -4584,7 +4800,8 @@ def s1_summaries(physics_res, datagen_res, fit_res):
     tan = physics_res["tangent"]
     keys = ("ms", "ms_pipelined", "plain_ms", "bound_ms", "bound_by", "bound_term", "bytes_ms",
             "ops_ms", "chain_ms", "chain_cycles_per_step", "flops_per_step",
-            "op_latency_cycles", "one_trajectory_ms")
+            "op_latency_cycles", "one_trajectory_ms", "cycles_per_step",
+            "cycles_per_step_pipelined", "one_trajectory_cycles_per_step")
     return [
         {"name": "simulate", **common, "launches": datagen_res["launches"],
          "max_abs_err": max(max(e["max_abs_err"].values()) for e in physics_res["forward"]),
@@ -4596,6 +4813,7 @@ def s1_summaries(physics_res, datagen_res, fit_res):
                 f"{DATAGEN_ACCEPTED} accepted"},
         {"name": "simulate_tangent", **common, "launches": fit_res["launches"]["simulate_tangent"],
          "max_abs_err": max(tan["max_abs_err"].values()), **{k: tan[k] for k in keys},
+         "eval_batch": tan["eval_batch"],
          "per": f"one tangent-mode call at {FIT_STARTS} starts x {FIT_FRAMES} frames (fit_physics "
                 f"at its defaults); chain_ms: the serial chain worked out from the code "
                 f"(s1_chain); one_trajectory_ms: the kernel on one start (9 threads), "
@@ -4707,7 +4925,7 @@ def main() -> int:
     rally_res = run_rally_phase(torch, Ops, pipe, profile=opts.profile)
     uplifting_res = run_uplifting(torch)
     calib_res = run_calib(torch, pipe)
-    physics_res = run_physics(torch)
+    physics_res = run_physics(torch, reports.get("physics.cu", ""))
     datagen_res = run_datagen(torch, profile=opts.profile)
     fit_res = run_fit(torch, pipe, datagen_res.pop("tracks"), profile=opts.profile)
     del pipe

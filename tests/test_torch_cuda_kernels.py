@@ -573,8 +573,8 @@ def test_k5_raises_under_grad(gen):
 # Held as chip_smoke.py's physics phase holds it, per trajectory over the whole run:
 # |dr| <= 1e-4 m, |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s, dr/dq within 1e-3 of the
 # trajectory's largest |dr/dq|; the kernel and the plain version run the same float32
-# operations in the same order, and at most 8 of 8,192 trajectories (none of fewer) may
-# see a knife-edge contact one step apart. The autograd Function's gradient against
+# operations in the same order, so every output is also bit-equal, as the physics phase
+# gates it at its two shapes. The autograd Function's gradient against
 # autograd through the plain version: 1e-5 relative in norm (reverse mode sums in another
 # order than the tangent's contraction).
 S1_ATOL = (1e-4, 1e-3, 1e-2)
@@ -588,40 +588,54 @@ def _s1_states(n, direction="left_to_right"):
                                         torch.Generator(device="cuda").manual_seed(n), "cuda")
 
 
-@pytest.mark.parametrize("n,frames,first_step", [(8192, 500, True), (1, 500, True),
-                                                 (33, 37, False)])
-def test_s1_forward_matches_plain(gen, n, frames, first_step):
+# the main path's shapes, ragged n (one thread, one warp and one past, one block past),
+# substeps 0 (every frame the same state), 1 and 3, first_step off, and frame counts of
+# 1, 2 and odd ones
+S1_FORWARD_CASES = [(8192, 500, 2, True), (1, 500, 2, True), (33, 37, 2, False),
+                    (513, 61, 1, True), (33, 7, 0, True), (33, 7, 0, False), (1, 1, 3, False),
+                    (65, 2, 3, True), (513, 40, 3, False)]
+S1_TANGENT_CASES = [(32, 502, 2, True), (3, 20, 2, True), (1, 33, 0, False), (33, 61, 1, True),
+                    (513, 40, 3, False), (11, 1, 2, False)]
+
+
+@pytest.mark.parametrize("n,frames,substeps,first_step", S1_FORWARD_CASES)
+def test_s1_forward_matches_plain(gen, n, frames, substeps, first_step):
     from upliftingtabletennis_torch.core import physics as P
     from upliftingtabletennis_torch.ops import physics as S1
 
     s0 = _s1_states(n)
     before = S1.simulate.launches
-    got = S1.simulate(s0, frames, first_step=first_step)
+    got = S1.simulate(s0, frames, substeps, first_step=first_step)
     torch.cuda.synchronize()
     assert S1.simulate.launches == before + 1
-    want = P.simulate(s0, frames, first_step=first_step)
+    want = P.simulate(s0, frames, substeps, first_step=first_step)
     over = torch.zeros(n, dtype=torch.bool, device="cuda")
     for g, w, tol in zip(got, want, S1_ATOL):
         assert g.shape == (frames, n, 3)
         over |= ~((g - w).abs().amax(dim=(0, 2)) <= tol)
-    assert int(over.sum()) <= (8 if n >= 8192 else 0)
+    assert int(over.sum()) == 0
+    for g, w in zip(got, want):  # the same operations in the same order: bit for bit
+        assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n,frames", [(32, 502), (3, 20)])
-def test_s1_tangent_matches_plain(gen, n, frames):
+@pytest.mark.parametrize("n,frames,substeps,first_step", S1_TANGENT_CASES)
+def test_s1_tangent_matches_plain(gen, n, frames, substeps, first_step):
     from upliftingtabletennis_torch.core import physics as P
     from upliftingtabletennis_torch.ops import physics as S1
 
     s0 = _s1_states(n, "right_to_left")
-    got_r, got_j = S1.simulate_tangent(s0, frames, 2, v_scale=10.0, w_scale=100.0)
+    args = (frames, substeps, P.DT, 10.0, 100.0, first_step)
+    got_r, got_j = S1.simulate_tangent(s0, *args)
     torch.cuda.synchronize()
-    want_r, want_j = P.simulate_tangent(s0, frames, 2, v_scale=10.0, w_scale=100.0)
+    want_r, want_j = P.simulate_tangent(s0, *args)
     assert got_j.shape == (frames, n, 3, 9)
     r_err = (got_r - want_r).abs().amax(dim=(0, 2))
     j_err = (got_j - want_j).abs().amax(dim=(0, 2, 3))
     ok = (r_err <= S1_ATOL[0]) & (j_err <= S1_JAC_RTOL * want_j.abs().amax(dim=(0, 2, 3)))
-    assert int((~ok).sum()) <= (1 if n >= 32 else 0)
-    np_r = S1.simulate(s0, frames).r  # the forward mode's positions are the same arithmetic
+    assert int((~ok).sum()) == 0
+    assert torch.equal(got_r, want_r) and torch.equal(got_j, want_j)
+    # the forward mode's positions are the same arithmetic
+    np_r = S1.simulate(s0, frames, substeps, first_step=first_step).r
     assert torch.equal(np_r, got_r)
 
 

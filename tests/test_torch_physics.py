@@ -251,3 +251,87 @@ def test_s1_chain_counts_the_flight_step():
                                 dict(unit, add=4.0, mul=4.0, div=40.0, sqrt=40.0))
     assert bound["bound_term"] == "serial_chain" and bound["bound_by"] == "operations"
     assert bound["bound_ms"] == max(bound["bytes_ms"], bound["ops_ms"], bound["chain_ms"])
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_s1_ptxas_report_is_read_per_kernel():
+    """chip_smoke.py's reading of nvcc's -Xptxas -v report for physics.cu: registers,
+    spills and stack of each kernel and of each out-of-line exact step, by short name."""
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N_14forward_kernelEPKfS1_S1_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N_14forward_kernelEPKfS1_S1_iiii
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 16 bytes cumulative stack size, 520 bytes cmem[0]
+ptxas info    : Function properties for _ZN46_GLOBAL__N_110exact_stepINS_4DualEEENS_5StateIT_EES4_PKf
+    120 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N_114tangent_kernelEPKfS1_S1_iiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N_114tangent_kernelEPKfS1_S1_iiiiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 520 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N_117op_latency_kernelEffiPfPy' for 'sm_90a'
+ptxas info    : Used 12 registers, used 0 barriers, 384 bytes cmem[0]
+"""
+    got = _chip_smoke().s1_ptxas(report)
+    assert got == {
+        "forward_kernel": {"stack": 16, "spill_stores": 0, "spill_loads": 0, "registers": 64},
+        "exact_step<Dual>": {"stack": 120, "spill_stores": 8, "spill_loads": 12},
+        "tangent_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 96}}
+
+
+def _sass_line(addr, text):
+    return (f"        /*{addr:04x}*/                   {text} ;"
+            f"                  /* 0x000fe20000000800 */\n"
+            f"                                                               /* 0x0 */")
+
+
+def test_s1_sass_facts_find_the_step_loop():
+    """chip_smoke.py's SASS facts: the step loop is the innermost backward branch whose
+    span holds at least 100 float instructions, whether cuobjdump prints its target as a
+    label or as an address; its kinds are counted, constant-bank operands apart from
+    LDC/ULDC."""
+    cs = _chip_smoke()
+    lines = ["\t\tFunction : _ZN46_GLOBAL__N_114tangent_kernelEPKfS1_S1_iiiiff",
+             _sass_line(0x0, "LDC R1, c[0x0][0x28]")]
+    addr = 0x10
+    outer = addr
+    for _ in range(3):
+        lines.append(_sass_line(addr, "STG.E [R2.64], R5"))
+        addr += 16
+    lines.append(".L_x_7:")
+    inner = addr
+    for i in range(120):
+        op = ("FFMA R4, R5, c[0x0][0x230], R6" if i % 3 == 0 else "FMUL R4, R5, R6"
+              if i % 3 == 1 else "FADD R4, -R5, R6")
+        lines.append(_sass_line(addr, op))
+        addr += 16
+    for text in ("MUFU.RCP R7, R8", "@P0 CALL.REL.NOINC 0x2000", "ULDC.64 UR4, c[0x0][0x208]",
+                 "LDL R9, [R1+0x4]", "@!P1 BRA `(.L_x_7)"):
+        lines.append(_sass_line(addr, text))
+        addr += 16
+    lines.append(_sass_line(addr, f"@P2 BRA 0x{outer:x}"))
+    lines.append(_sass_line(addr + 16, "EXIT"))
+    lines.append("\t\tFunction : _ZN46_GLOBAL__N_117op_latency_kernelEffiPfPy")
+    lines.append(_sass_line(0x0, "EXIT"))
+    facts = cs.s1_sass_facts("\n".join(lines))
+    assert set(facts) == {"tangent_kernel"}
+    loop = facts["tangent_kernel"]["step_loop"]
+    assert facts["tangent_kernel"]["instructions"] == 1 + 3 + 120 + 5 + 2
+    assert loop["bytes"] == 125 * 16 and loop["instructions"] == 125
+    assert (loop["FFMA"], loop["FMUL"], loop["FADD"]) == (40, 40, 40)
+    assert (loop["MUFU"], loop["CALL"], loop["ULDC"], loop["LDL"], loop["BRA"]) == (1, 1, 1, 1, 1)
+    assert loop["STG"] == 0 and loop["const_operands"] == 40
+
+
+def test_s1_cycles_per_step_at_the_boost_clock():
+    cs = _chip_smoke()
+    got = cs.s1_cycles_per_step({"ms": 1.0, "ms_pipelined": 0.5}, 1980)
+    assert got == {"cycles_per_step": 1000.0, "cycles_per_step_pipelined": 500.0}
