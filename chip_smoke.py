@@ -177,7 +177,7 @@ Phases (each prints one line with what it measured and the seconds elapsed):
 22. fit     `TableTennisPipeline.fit_physics` at its defaults (32 starts, 250 Adam, 12 LM
             steps: 262 tangent and 14 forward S1 launches per call) on tests/test_fitting.py's
             topspin and backspin states observed through the simulation camera at 50 fps over
-            the JAX tests' 0.46 s and over 1 s, and on two accepted datagen trajectories over
+            the JAX tests' 0.46 s and over 1 s, and on one accepted datagen trajectory over
             1 s (the 0.46 s cases cold and warm, the 1 s ones once): seconds per fit,
             reproj_px, basin_spread_m, the mean 3D
             error against the truth and the spin class (gates on the two test states over
@@ -197,7 +197,8 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             updated) that must fail it; gate 3: tests/test_data_pipeline.py's 60 steps at lr
             1e-3 from the weights and batch JAX used (tests/uplift_witness_60.npz) lower the
             loss below 0.9 of the first and follow JAX's losses; ms per assembly and per
-            step (median of 10 warm), trajectories/s, kernel launches of each, the idle share, peak memory; the CLI
+            step (median of 5 warm), trajectories/s, kernel launches of each, the idle share,
+            peak memory; the CLI
             (`run_uplifting.main`) over two epochs with --ttst_dir, then --resume for a third
             (the state as loaded bit-equal to the first run's, every checkpoint the metrics
             call for present, `hub.uplifting(checkpoint=model_synthetic)` equal to the run's
@@ -229,7 +230,25 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             protocol on 16 test trajectories at its defaults (S1 launches counted, the
             coverage and the 3D median reported); `compare_speed` of WASB and b0;
             `hub.download_example_images` and `run_rally` on its frames;
-25. hygiene  neither JAX nor the JAX package was imported.
+25. item7   the last modules' card paths: (a) BlurBall pretraining through `run_detection
+            --data blurball` at its defaults (b2, batch 4, 1600x896, 3 frames) on a
+            synthetic tree of 1080p PNGs: 2 ball steps and a validation, 1 table step, each
+            step's K1 / K2 / K4 / K4b launches against phase train's 16 / 16 / 16 / 32, the
+            losses finite, ms per step and per batch load, the checkpoint at
+            `pretraining_blurball/segformerpp_b2/model.pt` and `run_detection.warm_start`
+            (what `--pretraining` calls) loading every tensor of it into a fresh b2 ball
+            detector; (b) the uplifting trainer's step under DDP over NCCL at world size 1
+            against the plain step (connectstage large, batch 64, 3 steps from one seed,
+            deterministic algorithms): every parameter bit-equal; ms per step and the last
+            step's launches, both in deterministic mode; (c)
+            `hub.full_pipeline(weights_url="file://...")` on a reference weights zip (WASB,
+            the table HRNet, the uplifting model; the b2 slots seeded): one `run_rally`
+            piece of 8 frames bit-equal to a pipeline of the same weights mapped directly,
+            its K1 / K2 / K5a / K5b launches those of a rally piece (RALLY_PER_PIECE), a
+            second call served by the cache; (d) `extract_ttst` on a two-event raw layout at 2560x1440 (each
+            camera within 2 px of the truth, at least 6 inliers), `annotation_qa` on a
+            planted left/right swap, `one_euro_trajectory` on the card against the CPU;
+26. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -407,7 +426,7 @@ UPLIFT_LENGTHS = (50, 12)  # a full sequence and one padded to SEQUENCE_LEN
 # (300, -200) px; tests/test_calibration.py's bounds: the others within 3 px on average,
 # the outlier beyond 50 px
 CALIB_RES, CALIB_NOISE_PX, CALIB_OUTLIER = (1920, 1080), 1.0, (3, (300.0, -200.0))
-CALIB_MEAN_PX, CALIB_OUTLIER_PX, CALIB_CALLS = 3.0, 50.0, 5
+CALIB_MEAN_PX, CALIB_OUTLIER_PX, CALIB_CALLS = 3.0, 50.0, 2
 
 # S1, the integrator (ops/csrc/physics.cu): forward mode at the datagen batch (8,192
 # "intermediate" candidates, 500 frames, each direction), tangent mode at the fit's shape
@@ -430,7 +449,7 @@ S1_EVAL_STARTS = 512  # run_physics_fit_eval's tangent launches: 16 tracks x 32 
 # the fit: fit_physics at its defaults (32 starts, 250 Adam and 12 LM steps), each fit
 # cold and warm, on tests/test_fitting.py's topspin and backspin states observed through
 # the simulation camera at 50 fps, over the JAX tests' window (24 detections, 0.46 s) and
-# over 1 s (50 detections), and on two accepted datagen trajectories over 1 s. Gates, as
+# over 1 s (50 detections), and on one accepted datagen trajectory over 1 s. Gates, as
 # the JAX tests set them (on their window): mean 3D error under 10 cm and the spin class,
 # on the two test states and the warm start. The 1 s tracks are reported, and held
 # against the JAX fit from JAX's own draws (`fit_witness`): from most keys the JAX fit
@@ -440,6 +459,7 @@ FIT_STATES = {"topspin": ((-1.1, 0.25, 1.05), (7.0, -0.6, 0.8), (5.0, 90.0, -15.
 FIT_SPIN_CLASS = {"topspin": 1.0, "backspin": 2.0}
 FIT_OBS, FIT_OBS_LONG, FIT_STRIDE = 24, 50, 10  # detections; 500 fps frames between two
 FIT_GATE_CM = 10.0
+FIT_DATAGEN_TRACKS = 1  # accepted datagen trajectories fitted over 1 s, reported, not gated
 FIT_LAUNCHES = {"simulate_tangent": 250 + 12, "simulate": 1 + 12 + 1}  # per fit_physics call
 # datagen: generate_dataset("intermediate") at its production batch until this many
 # accepted; the first batch again on the CPU's plain path must agree with the card on the
@@ -452,7 +472,7 @@ DATAGEN_ACCEPTED, DATAGEN_BATCH, DATAGEN_CPU_AGREEMENT = 1024, 8192, 0.995
 # each final_win shard capped at UPLIFT_CAP_S seconds; a synthetic TTST layout of
 # UPLIFT_TTST trajectories. Step times: the median of UPLIFT_TIMED_STEPS warm steps.
 UPLIFT_SCALE, UPLIFT_GEN_BATCH, UPLIFT_CAP_S, UPLIFT_TTST = 0.01, 8192, 3.0, 64
-UPLIFT_BATCH, UPLIFT_TIMED_STEPS, UPLIFT_PROFILED_STEPS = 64, 10, 1
+UPLIFT_BATCH, UPLIFT_TIMED_STEPS, UPLIFT_PROFILED_STEPS = 64, 5, 1
 # gate 1: the batch assembly on the card against the CPU from the same draws. The cameras'
 # sin, cos and norms round differently on the two, so a candidate whose projection touches
 # the image border, or the 15% span, within a rounding can be judged differently there: at
@@ -561,6 +581,19 @@ VT_DDP_RES, VT_DDP_BATCH = (960, 544), 2
 VT_DDP_TOL = 1e-6  # the loss and every gradient tensor, of its max |grad|
 VT_RALLY_FRAMES = 16
 VT_DATAGEN = (64, 2048)
+# phase item7: BlurBall pretraining at the trainer's defaults (b2, batch 4, 1600x896, 3
+# frames) on a synthetic tree of 1080p frames (train video 1, holdout video 3: 8 train and
+# 4 val samples), the uplifting trainer under DDP, the reference weights zip, and the
+# extraction and QA on the card.
+I7_BLURBALL_VIDEOS = ((1, 10), (3, 10))
+I7_BALL_STEPS, I7_TABLE_STEPS = 2, 1
+I7_STEP_LAUNCHES = {"fused_attention_block": 16, "fused_ln_ffn": 16, "depthwise_conv3x3": 16,
+                    "dwconv3x3_backward": 32}  # phase train's b2 step
+I7_DDP_STEPS, I7_DDP_BATCH, I7_DDP_STORE = 3, 64, 256
+I7_ZIP_FRAMES = 8  # one run_rally piece
+I7_TTST_RES = (2560, 1440)
+I7_PX_TOL, I7_MIN_INLIERS = 2.0, 6
+I7_SMOOTH_TOL = 1e-6
 # the CUDA API calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 CARD = ""  # nvidia-smi's name and power limit, set by main
@@ -2251,6 +2284,94 @@ def tiny_tthq(root, n_frames=8, hw=(180, 320)):
         fh.write("\n".join(table_rows))
 
 
+def tiny_blurball(root, videos=((1, 10), (3, 10)), hw=(180, 320), invisible=(), seed=1):
+    """A BlurBall layout (`data/detection.py`) of synthetic frames written as PNGs: for each
+    (video, n_frames) one sequence 000 of n frames (a bright streak on texture), its CSV
+    (Frame, X, Y, l, theta, Visibility; the frames in `invisible` annotated invisible) and
+    a table calibration (rvec, tvec, f) that puts the table in view. Video 3 is in the
+    val/test pool, video 1 trains."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.data.png import write_png
+
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    r = max(2, W // 150)  # the blob's radius
+    oy, ox = np.mgrid[-3 * r:3 * r + 1, -3 * r:3 * r + 1]
+    blob = (170 * np.exp(-(ox ** 2 + oy ** 2) / (2.0 * r * r)))[..., None]
+    ann = os.path.join(root, "blurball", "all_csv_annotations")
+    calib = os.path.join(root, "blurball", "all_calib_files")
+    os.makedirs(ann, exist_ok=True)
+    os.makedirs(calib, exist_ok=True)
+    for vid, n_frames in videos:
+        seq = os.path.join(root, "blurball", f"{vid:02d}", "frames", "000")
+        os.makedirs(seq, exist_ok=True)
+        rows = ["Frame,X,Y,l,theta,Visibility"]
+        texture = 80 + 30 * np.sin(np.arange(W + n_frames) / 9.0 + vid)
+        texture = texture[None, :, None] + 20 * np.sin(np.arange(H) / 13.0)[:, None, None]
+        texture = np.repeat(texture, 3, axis=2).astype(np.uint8)
+        for f in range(n_frames):
+            bx = int(rng.integers(3 * r, W - 3 * r))
+            by = int(rng.integers(3 * r, H - 3 * r))
+            length, theta = rng.uniform(1, 0.02 * W), rng.uniform(-90, 90)
+            img = np.ascontiguousarray(texture[:, f:f + W])
+            patch = img[by - 3 * r:by + 3 * r + 1, bx - 3 * r:bx + 3 * r + 1]
+            patch[:] = np.clip(patch + blob, 0, 255).astype(np.uint8)
+            write_png(os.path.join(seq, f"{f:05d}.png"), img)
+            rows.append(f"{f},{bx},{by},{length:.3f},{theta:.2f},{0 if f in invisible else 1}")
+        with open(os.path.join(ann, f"{vid:02d}_csv_000.csv"), "w") as fh:
+            fh.write("\n".join(rows))
+        with open(os.path.join(calib, f"{vid:02d}_table_pose.yaml"), "w") as fh:
+            fh.write(f"rvec: [1.2, 0.0, 0.0]\ntvec: [0.0, 0.5, 5.0]\nf: {0.9 * W:.1f}\n")
+
+
+def project_np(Mint, Mext, pts3d):
+    """Pixels (N, 2) of world points (N, 3) through a camera, numpy float64."""
+    import numpy as np
+
+    p = np.concatenate([pts3d, np.ones((len(pts3d), 1))], -1) @ np.asarray(Mext).T
+    q = (p[:, :3] / p[:, 3:4]) @ np.asarray(Mint).T
+    return q[:, :2] / q[:, 2:3]
+
+
+def raw_ttst(root, Mint, Mext, n_events=2, jitter=0.5, seed=0):
+    """Raw TTST annotations of one video (`01_keypoints.csv`, `01_events.csv`: sep ';',
+    the header on the second line) through a known camera: n_events spin-annotated events
+    (Begin, Frontspin or Backspin, Bounce, End over 20 frames, the ball annotated on all
+    but the eighth, the 13 table points on every second frame with +-jitter px) and one
+    event without a spin annotation, which the extraction drops. Returns the noise-free
+    table pixels (13, 2)."""
+    import numpy as np
+
+    from upliftingtabletennis_torch.core.geometry import TABLE_POINTS
+
+    rng = np.random.default_rng(seed)
+    table_px = project_np(Mint, Mext, np.asarray(TABLE_POINTS, np.float64))
+    t = np.arange(20) / 50.0
+    events = ["junk line to skip", "frame;event"]
+    rows = ["junk line to skip", "frame;ball_x;ball_y;ball_flag;" + ";".join(
+        f"{p:02}_x;{p:02}_y;{p:02}_flag" for p in range(1, 14))]
+    for k in range(n_events + 1):
+        start = 100 + 40 * k
+        ball3d = np.stack([-1.2 + 3.0 * t, 0.2 - 0.3 * t + 0.1 * k,
+                           1.1 - 2.0 * t + 4.0 * t ** 2], -1)
+        ball_px = project_np(Mint, Mext, ball3d)
+        spin = [f"{start + 3};{'Frontspin' if k % 2 == 0 else 'Backspin'}"] if k < n_events else []
+        events += [f"{start};Begin", *spin, f"{start + 8};Bounce", f"{start + 19};End"]
+        for i in range(25):
+            annotated = i < 20 and i != 7
+            ball = (f"{ball_px[i][0]:.2f};{ball_px[i][1]:.2f};2" if annotated else "-1;-1;0")
+            cells = [f"{x + dx:.2f};{y + dy:.2f};2" for (x, y), (dx, dy) in
+                     zip(table_px, rng.uniform(-jitter, jitter, (13, 2)))] if i % 2 == 0 else \
+                ["-1;-1;0"] * 13
+            rows.append(f"{start + i};{ball};" + ";".join(cells))
+    with open(os.path.join(root, "01_keypoints.csv"), "w") as f:
+        f.write("\n".join(rows))
+    with open(os.path.join(root, "01_events.csv"), "w") as f:
+        f.write("\n".join(events))
+    return table_px
+
+
 def run_train(torch, ops, frames, profile=False):
     import glob
     import tempfile
@@ -3638,8 +3759,9 @@ def run_datagen(torch, profile=False):
             f"one warm generate_dataset call ({DATAGEN_ACCEPTED} accepted, batch "
             f"{DATAGEN_BATCH})")
     res["tracks"] = [tuple(out[k][i, 0] for k in ("positions", "velocities", "rotations"))
-                     for i in range(2)]
-    res["track_frames"] = [int(out["frame_valid"][i].sum()) for i in range(2)]
+                     for i in range(FIT_DATAGEN_TRACKS)]
+    res["track_frames"] = [int(out["frame_valid"][i].sum())
+                           for i in range(FIT_DATAGEN_TRACKS)]
 
     # the first batch's candidates on the card (S1) and on the CPU (the plain version)
     s0 = DG.sample_initial_conditions(DATAGEN_BATCH, "intermediate", "left_to_right",
@@ -3665,8 +3787,8 @@ def run_datagen(torch, profile=False):
 
 def run_fit(torch, pipe, datagen_tracks, profile=False):
     """TableTennisPipeline.fit_physics at its defaults on the two test states (cold and
-    warm) and, over 1 s, on them and two accepted datagen trajectories (once each), and
-    one warm start; launches counted per call."""
+    warm) and, over 1 s, on them and FIT_DATAGEN_TRACKS accepted datagen trajectories (once
+    each), and one warm start; launches counted per call."""
     import numpy as np
 
     from upliftingtabletennis_torch.core import fitting as FIT
@@ -4706,6 +4828,400 @@ def run_closed_loop(torch, ops, pre=None):
 
 
 
+def reference_weights_zip(torch, root):
+    """The reference's weights zip in its layout (`inference_*/<name>/model.pt`, one wrapping
+    folder) from seeded port state dicts renamed to the reference's keys: WASB, the table
+    HRNet and the `ours` uplifting model (connectstage large), as
+    tests/test_torch_port_reference_weights.py builds them (weights scaled by fan-in^-1/2,
+    variances positive). Returns (the zip's path, {slot: the reference state dict})."""
+    import re
+    import zipfile
+
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.models.uplifting import get_uplifting_model
+
+    def seeded(state, seed):
+        g = torch.Generator().manual_seed(seed)
+        out = {}
+        for k, v in state.items():
+            if v.is_floating_point():
+                v = torch.randn(v.shape, generator=g)
+                v = v.abs() + 0.5 if k.endswith("running_var") else (
+                    v * v[0].numel() ** -0.5 if v.ndim >= 2 else v)
+            out[k] = v.clone()
+        return out
+
+    refs = {}
+    for slot, (name, task), seed in (("ball_aux", ("wasb", "ball"), 1),
+                                     ("table_aux", ("hrnet", "table"), 2)):
+        state = seeded(get_detector(name, task)[0].state_dict(), seed)
+        refs[slot] = {re.sub(r"_(\d+)", r".\1", k): v for k, v in state.items()}
+    up = seeded(get_uplifting_model("connectstage", "large", "dynamic", "new").state_dict(), 3)
+    refs["uplifting"] = {}
+    for k, v in up.items():
+        k = ".".join(re.sub(r"^(.+)_(\d+)$", r"\1.\2", p) for p in k.replace("table_stage.", "")
+                     .split("."))
+        refs["uplifting"][k] = v * 0.5
+    infos = {"ball_aux": ("inference_balldetection/wasb", {"model_name": "wasb", "in_frames": 3,
+                                                           "image_resolution": (1280, 704)}),
+             "table_aux": ("inference_tabledetection/hrnet",
+                           {"model_name": "hrnet", "image_resolution": (1280, 704)}),
+             "uplifting": ("inference_uplifting/ours",
+                           {"name": "connectstage", "size": "large", "tabletoken_mode": "dynamic",
+                            "time_rotation": "new", "transform_mode": "global"})}
+    path = os.path.join(root, "tt_weights.zip")
+    with zipfile.ZipFile(path, "w") as z:
+        for slot, (rel, info) in infos.items():
+            pt = os.path.join(root, "model.pt")
+            torch.save({"model_state_dict": refs[slot], "identifier": rel,
+                        "additional_info": info}, pt)
+            z.write(pt, f"tt_weights/{rel}/model.pt")
+            os.remove(pt)
+    return path, refs
+
+
+def start_item7(pool):
+    """Phase item7's BlurBall tree (1080p PNG files), written on the closed loop's
+    low-priority worker beside the earlier phases. Returns (the directory, the future)."""
+    import tempfile
+
+    d = tempfile.TemporaryDirectory()
+    return d, pool.submit(tiny_blurball, os.path.join(d.name, "bb"), I7_BLURBALL_VIDEOS,
+                          hw=(EVAL_RES[1], EVAL_RES[0]))
+
+
+def run_item7(torch, ops, pre=None):
+    """Phase item7: the last modules' card paths. (a) BlurBall pretraining through
+    `run_detection --data blurball` at its defaults (the ball for I7_BALL_STEPS steps and a
+    validation, the table for I7_TABLE_STEPS), K1 / K2 / K4 / K4b launches of every step
+    against phase train's, ms per step and per batch load, the checkpoint at
+    `pretraining_blurball/segformerpp_b2/model.pt` and `run_detection.warm_start`, what
+    `--pretraining` calls, loading every tensor of it into a fresh b2 ball detector (the
+    tree from `start_item7`'s worker, `pre`, or written here); (b) the uplifting trainer's
+    step under DDP over NCCL at world size 1 against the plain step, I7_DDP_STEPS steps of
+    connectstage large at batch 64 from one seed, the parameters bit-equal under
+    deterministic algorithms (ms and launches are those of that mode; the launches counted
+    on the last step); (c)
+    `hub.full_pipeline(weights_url="file://...")` on a reference weights zip: one
+    `run_rally` piece (and the uplifting model on a track) bit-equal to a pipeline of the
+    same weights mapped directly by `utils/port_torch.py`, and a second call served by the
+    cache; (d) `extract_ttst` on a two-event raw layout, `annotation_qa` on a planted swap
+    and `one_euro_trajectory`, on the card."""
+    import contextlib
+    import copy
+    import io
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from upliftingtabletennis_torch import hub
+    from upliftingtabletennis_torch.core.geometry import TABLE_POINTS, get_Mext
+    from upliftingtabletennis_torch.data import annotation_qa as QA
+    from upliftingtabletennis_torch.data import datagen as DG
+    from upliftingtabletennis_torch.data import detection as D
+    from upliftingtabletennis_torch.data import extract_ttst as XT
+    from upliftingtabletennis_torch.data import synthetic as SYN
+    from upliftingtabletennis_torch.data.augment import AugmentConfig
+    from upliftingtabletennis_torch.models.factory import get_detector
+    from upliftingtabletennis_torch.models.uplifting import get_uplifting_model, reference_init
+    from upliftingtabletennis_torch.pipeline.interface import (BallDetector, TableDetector,
+                                                               UpliftingModel)
+    from upliftingtabletennis_torch.train import run_detection as T
+    from upliftingtabletennis_torch.train import run_uplifting as RU
+    from upliftingtabletennis_torch.train import uplifting_train as UT
+    from upliftingtabletennis_torch.utils import port_reference_weights as PRW
+    from upliftingtabletennis_torch.utils import port_torch as PP
+    from upliftingtabletennis_torch.utils.smoothing import one_euro_trajectory
+
+    t_phase = time.time()
+    res = {}
+
+    # (a) BlurBall pretraining at the trainer's defaults, then the TTHQ hand-off
+    steps, loads = [], []
+    stock_step = T.train_step
+
+    def counted_step(*a, **k):
+        for name in ops.ALL:
+            getattr(ops, name).launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        loss = stock_step(*a, **k)
+        value = loss.item()  # waits for the step
+        steps.append({"ms": 1e3 * (time.time() - t), "loss": value,
+                      "launches": {n: getattr(ops, n).launches for n in ops.ALL}})
+        return loss
+
+    def timed(load):
+        def call(*a, **k):
+            t = time.time()
+            out = load(*a, **k)
+            loads.append(1e3 * (time.time() - t))
+            return out
+        return call
+
+    t = time.time()
+    trees, written = pre if pre is not None else start_item7(ThreadPoolExecutor(1))
+    written.result()
+    write_s = time.time() - t  # waiting for the worker; the writing itself when run alone
+    with trees:
+        d = trees.name
+        bb, save = os.path.join(d, "bb"), os.path.join(d, "ckpt")
+        common = ["--model", "segformerpp_b2", "--save_dir", save,
+                  "--logdir", os.path.join(d, "runs"), "--device", DEVICE]
+        out = io.StringIO()
+        per_task = {}
+        with patched(T, train_step=counted_step), \
+                patched(D, load_blurball_ball_batch=timed(D.load_blurball_ball_batch),
+                        load_blurball_table_batch=timed(D.load_blurball_table_batch)), \
+                contextlib.redirect_stdout(out):
+            for task, n in (("ball", I7_BALL_STEPS), ("table", I7_TABLE_STEPS)):
+                first, first_load, t = len(steps), len(loads), time.time()
+                T.main(["--task", task, "--data", "blurball", "--data_root", bb,
+                        "--batch_size", str(TRAIN_BATCH), "--val_iterations", str(n),
+                        "--max_steps", str(n), *common])
+                per_task[task] = dict(cli_s=time.time() - t, steps=steps[first:],
+                                      load_ms=loads[first_load:])
+        ckpt = T.pretraining_path(save, "segformerpp_b2")
+        have_ckpt = os.path.isfile(ckpt)
+        t = time.time()
+        fresh = get_detector("segformerpp_b2", "ball", train=True)[0]
+        n_loaded, n_total = (T.warm_start(fresh, ckpt, "ball/segformerpp_b2") if have_ckpt
+                             else (0, len(fresh.state_dict())))
+        handoff_s = time.time() - t
+        del fresh
+    ball = per_task["ball"]
+    res["blurball"] = dict(
+        write_s=write_s, handoff_s=handoff_s, checkpoint=have_ckpt, n_total=n_total,
+        n_loaded=n_loaded,
+        **{task: dict(cli_s=v["cli_s"], losses=[s["loss"] for s in v["steps"]],
+                      step_ms=[s["ms"] for s in v["steps"]],
+                      launches=[s["launches"] for s in v["steps"]], load_ms=v["load_ms"])
+           for task, v in per_task.items()})
+    launches = {k: v for k, v in ball["steps"][-1]["launches"].items() if v}
+    res["blurball"]["launches_per_step"] = launches
+    log("item7", step="a_blurball", cli_s=json.dumps({k: round(v["cli_s"], 2)
+                                                       for k, v in per_task.items()}),
+        ms_per_step=json.dumps({k: [round(s["ms"], 1) for s in v["steps"]]
+                                for k, v in per_task.items()}),
+        ms_per_batch_load=json.dumps({k: [round(x, 1) for x in v["load_ms"]]
+                                      for k, v in per_task.items()}),
+        losses=json.dumps({k: [round(s["loss"], 5) for s in v["steps"]]
+                           for k, v in per_task.items()}),
+        launches_per_step=json.dumps(launches), checkpoint=have_ckpt,
+        handoff=f"{n_loaded}/{n_total}", handoff_s=f"{handoff_s:.1f}",
+        write_s=f"{write_s:.1f}")
+    for task, v in per_task.items():
+        if len(v["steps"]) != dict(ball=I7_BALL_STEPS, table=I7_TABLE_STEPS)[task]:
+            raise AssertionError(f"BlurBall {task}: {len(v['steps'])} steps")
+        for s in v["steps"]:
+            if not np.isfinite(s["loss"]):
+                raise AssertionError(f"BlurBall {task}: the loss is {s['loss']}")
+            got = {k: s["launches"][k] for k in I7_STEP_LAUNCHES}
+            if got != I7_STEP_LAUNCHES or sum(s["launches"].values()) != sum(got.values()):
+                raise AssertionError(f"a BlurBall {task} step launched {s['launches']}, "
+                                     f"expected {I7_STEP_LAUNCHES}")
+    if not have_ckpt:
+        raise AssertionError(f"no BlurBall checkpoint at {ckpt}")
+    if n_loaded != n_total:
+        raise AssertionError(f"the hand-off loaded {n_loaded}/{n_total} tensors of {ckpt}")
+    torch.cuda.empty_cache()
+
+    # (b) the uplifting trainer under DDP at world size 1 against the plain trainer
+    t = time.time()
+    store = SYN.store_from_datagen(DG.generate_dataset(
+        I7_DDP_STORE, "intermediate", "left_to_right", device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(5)))
+    store_d = SYN.store_to_device(store, DEVICE)
+    perm = torch.randperm(len(store), generator=torch.Generator().manual_seed(6))
+    idx_all = perm.to(DEVICE)
+    cfg = AugmentConfig()
+    B = I7_DDP_BATCH
+    store_s = time.time() - t
+
+    model0 = get_uplifting_model("connectstage", "large", "dynamic", "new")
+    reference_init(model0, torch.Generator().manual_seed(7))
+    model0.to(DEVICE)
+
+    def uplift_run(ddp):
+        model = copy.deepcopy(model0)
+        state = UT.init_train_state(model)
+        net = (DistributedDataParallel(model, device_ids=[torch.cuda.current_device()],
+                                       broadcast_buffers=False) if ddp else None)
+        gen = torch.Generator(device=DEVICE).manual_seed(8)
+        shard = slice(0, B) if ddp else None
+        ms, losses = [], []
+
+        def step(s):
+            batch, _ = RU.train_batch(store_d, idx_all[(s * B) % len(store):][:B], gen, cfg,
+                                      shard=shard)
+            return UT.train_step(model, state, batch, 1e-4, 0.999, "global", net)
+
+        for s in range(I7_DDP_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = step(s)
+            losses.append(m["loss"].item())
+            ms.append(1e3 * (time.time() - t0))
+        counted = profile_calls(  # the last step, its launches counted
+            torch, lambda: losses.append(step(I7_DDP_STEPS - 1)["loss"].item()),
+            "uplifting step", quiet=True)
+        params = [p.detach().clone() for p in state.params]
+        return params, ms, losses, counted["launches"]
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with patched(torch.backends.cudnn, deterministic=True):
+            t1 = time.time()
+            plain = uplift_run(False)
+            t2 = time.time()
+            ddp = uplift_run(True)
+            run_s = {"store": store_s, "plain": t2 - t1, "ddp": time.time() - t2}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    differ = sum(int((a != b).sum()) for a, b in zip(ddp[0], plain[0]))
+    res["uplift_ddp"] = dict(differing_params=differ, algorithms="deterministic",
+                             ms_plain=plain[1], ms_ddp=ddp[1], losses_plain=plain[2],
+                             losses_ddp=ddp[2], launches_plain=plain[3], launches_ddp=ddp[3],
+                             parts_s=run_s, seconds=time.time() - t)
+    log("item7", step="b_uplift_ddp", config=f"connectstage_large_b{B}_steps{I7_DDP_STEPS}",
+        algorithms="deterministic", differing_params=differ,
+        ms_plain=json.dumps([round(x, 2) for x in plain[1]]),
+        ms_ddp=json.dumps([round(x, 2) for x in ddp[1]]),
+        losses=json.dumps([round(x, 4) for x in ddp[2]]), launches_per_step_plain=plain[3],
+        launches_per_step_ddp=ddp[3],
+        parts_s=json.dumps({k: round(v, 2) for k, v in run_s.items()}),
+        seconds=f"{time.time() - t:.1f}")
+    if differ or ddp[2] != plain[2]:
+        raise AssertionError(f"the DDP trainer differs from the plain one in {differ} "
+                             f"parameters; losses {ddp[2]} vs {plain[2]}")
+    del store_d
+    torch.cuda.empty_cache()
+
+    # (c) the reference weights zip through hub.full_pipeline(weights_url=...)
+    t = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        zpath, refs = reference_weights_zip(torch, d)
+        with patched(PRW, CACHE_DIR=os.path.join(d, "cache")):
+            out = io.StringIO()
+            t1 = time.time()
+            with contextlib.redirect_stdout(out):
+                pipe = hub.full_pipeline(weights_url=f"file://{zpath}", device=DEVICE)
+            first_s, first_out = time.time() - t1, out.getvalue()
+            out = io.StringIO()
+            t1 = time.time()
+            # the second call resolves its checkpoints from the cache; its models are not
+            # built again (they are the first call's)
+            with contextlib.redirect_stdout(out), \
+                    patched(hub, TableTennisPipeline=lambda ck, device=None, **kw: ck):
+                cached_ck = hub.full_pipeline(weights_url=f"file://{zpath}", device=DEVICE)
+            cached_s, cached_out = time.time() - t1, out.getvalue()
+            cached_ok = sorted(cached_ck) == sorted(refs) and all(
+                os.path.isfile(v) for v in cached_ck.values())
+    direct = {slot: PP.port_cnn_state_dict(refs[slot], get_detector(*nt)[0].state_dict())
+              for slot, nt in (("ball_aux", ("wasb", "ball")), ("table_aux", ("hrnet", "table")))}
+    direct["uplifting"] = PP.port_uplifting_state_dict(refs["uplifting"])
+    twin = copy.copy(pipe)  # the seeded b2 detectors shared; the other slots mapped directly
+    chunk = pipe.ball_detector.chunk
+    twin.ball_detector_aux = BallDetector("wasb", direct["ball_aux"], chunk, device=DEVICE)
+    twin.table_detector_aux = TableDetector("hrnet", direct["table_aux"], chunk, device=DEVICE)
+    twin.uplifting_model = UpliftingModel(direct["uplifting"], device=DEVICE)
+    frames = synthetic_frames(I7_ZIP_FRAMES)
+    for k in ops.ALL:
+        getattr(ops, k).launches = 0
+    got = pipe.run_rally(frames, fps=50)
+    zip_launches = {k: getattr(ops, k).launches for k in ops.ALL if getattr(ops, k).launches}
+    want = twin.run_rally(frames, fps=50)
+    # the uplifting slot on a track of its own (random detectors find no ball to lift)
+    rng = np.random.default_rng(10)
+    track = (np.stack([np.linspace(300, 1500, 30), 500 + 80 * np.sin(np.linspace(0, 3, 30))], 1)
+             + rng.normal(0, 2, (30, 2))).astype(np.float32)
+    table = np.concatenate([rng.uniform([400, 500], [1500, 900], (13, 2)), np.ones((13, 1))],
+                           1).astype(np.float32)
+    times = (np.arange(30) / 50.0).astype(np.float32)
+    got["uplifting"] = np.concatenate([a.ravel() for a in pipe.uplifting_model.predict(
+        track, table, times)])
+    want["uplifting"] = np.concatenate([a.ravel() for a in twin.uplifting_model.predict(
+        track, table, times)])
+    equal = {k: (got[k] is None and want[k] is None) or (
+        got[k] is not None and want[k] is not None
+        and np.array_equal(np.asarray(got[k]), np.asarray(want[k]), equal_nan=True))
+        for k in want}
+    converted = first_out.count("  ok")
+    res["weights_zip"] = dict(first_s=first_s, cached_s=cached_s, converted=converted,
+                              cached_ok=cached_ok, equal=equal, launches=zip_launches,
+                              seconds=time.time() - t)
+    log("item7", step="c_weights_zip", first_s=f"{first_s:.2f}", cached_s=f"{cached_s:.2f}",
+        converted=converted, cached_ok=cached_ok, equal=json.dumps(equal),
+        launches=json.dumps(zip_launches),
+        seconds=f"{time.time() - t:.1f}")
+    if converted != 3 or not cached_ok or "downloading" in cached_out \
+            or "extracting" in cached_out or "  ok" in cached_out:
+        raise AssertionError(f"the zip converted {converted} checkpoints; the second call "
+                             f"printed {cached_out!r}")
+    if not all(equal.values()):
+        raise AssertionError(f"the weights-zip pipeline differs from the direct map: {equal}")
+    want_launches = rally_launches(pipe, I7_ZIP_FRAMES, 1)
+    if zip_launches != want_launches:
+        raise AssertionError(f"the weights-zip piece launched {zip_launches}, expected "
+                             f"{want_launches}")
+    del pipe, twin
+    torch.cuda.empty_cache()
+
+    # (d) extraction and QA on the card
+    t = time.time()
+    c = torch.tensor([1.0, 9.0, 5.0], dtype=torch.float64)
+    look = torch.tensor([0.0, 0.0, 0.76], dtype=torch.float64)
+    fwd = (look - c) / (look - c).norm()
+    right = torch.linalg.cross(fwd, torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64))
+    Mext = get_Mext(c, fwd, right / right.norm()).numpy()
+    Mint = np.array([[2710.0, 0, 1280], [0, 2907.0, 720], [0, 0, 1]])
+    with tempfile.TemporaryDirectory() as d:
+        table_px = raw_ttst(d, Mint, Mext)
+        r_imgs, _, Mints, Mexts, _, spins, _ = XT.transform_annotations(
+            d, ("01",), I7_TTST_RES, device=DEVICE)
+    cams = []
+    for Mi, Me in zip(Mints, Mexts):
+        err = np.linalg.norm(project_np(Mi, Me, np.asarray(TABLE_POINTS, np.float64)) - table_px,
+                             axis=1)
+        cams.append(dict(max_px=float(err.max()), inliers=int((err < 3.5).sum())))
+    kps = np.concatenate([table_px, np.ones((13, 1))], -1).astype(np.float32)
+    bad = kps.copy()
+    a, b = QA.LEFT_RIGHT_PAIRS[0]
+    bad[[a, b], :2] = bad[[b, a], :2]
+    flagged, base = QA.detect_left_right_swaps(bad, I7_TTST_RES, device=DEVICE)
+    rng = np.random.default_rng(9)
+    times = torch.from_numpy(np.cumsum(rng.uniform(0.015, 0.025, 64)).astype(np.float32))
+    xs = torch.from_numpy((np.cumsum(rng.normal(0, 3, (64, 17, 2)), 0) + 500).astype(np.float32))
+    smooth_card = one_euro_trajectory(times.to(DEVICE), xs.to(DEVICE)).cpu()
+    smooth_cpu = one_euro_trajectory(times, xs)
+    smooth_err = float((smooth_card - smooth_cpu).abs().max() / smooth_cpu.abs().max())
+    res["extract"] = dict(events=len(Mints), spins=spins, cameras=cams, flagged=flagged,
+                          swap_base_px=base, smooth_rel_err=smooth_err, seconds=time.time() - t)
+    log("item7", step="d_extract", events=len(Mints), spins=json.dumps(spins),
+        cameras=json.dumps(cams), flagged=json.dumps(flagged), swap_base_px=f"{base:.2f}",
+        smooth_rel_err=f"{smooth_err:.3g}", seconds=f"{time.time() - t:.1f}")
+    if len(Mints) != 2 or spins != [1, 2] or any(
+            cam["max_px"] > I7_PX_TOL or cam["inliers"] < I7_MIN_INLIERS for cam in cams):
+        raise AssertionError(f"TTST extraction on the card: {res['extract']}")
+    if 0 not in flagged:
+        raise AssertionError(f"annotation QA on the card flagged {flagged} (planted swap: "
+                             f"pair 0)")
+    if smooth_err > I7_SMOOTH_TOL:
+        raise AssertionError(f"one_euro_trajectory on the card differs from the CPU by "
+                             f"{smooth_err}")
+    res["seconds"] = time.time() - t_phase
+    log("item7", seconds=f"{res['seconds']:.1f}")
+    return res
+
+
 def profile_calls(torch, fn, label, categories=None, calls=1, quiet=False):
     """Device time by kernel over `calls` warm calls of `fn` (torch.profiler), the idle
     share, the kernel launches per call, and the Python lines that make the host wait for
@@ -4896,6 +5412,7 @@ def main() -> int:
     # the closed_loop phase's CPU reference steps run beside the phases until it
     closed_pre = start_closed_loop(torch)
     vt_pre = start_vitpose_train(torch, closed_pre[2])
+    item7_pre = start_item7(closed_pre[2])
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen, profile=opts.profile)
     k2_entries = run_k2(torch, F, Ops, gen, profile=opts.profile)
@@ -4934,8 +5451,10 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     closed_res = run_closed_loop(torch, Ops, closed_pre)
+    torch.cuda.empty_cache()
+    item7_res = run_item7(torch, Ops, item7_pre)
 
-    # 25. hygiene
+    # 26. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -5034,6 +5553,11 @@ def main() -> int:
                          **closed_res["eval"]["physics_fit"]["s1_launches"]}
         if eval_launches.get(entry["name"]):  # closed_loop (d): the evaluation entry points
             entry["launches_eval"] = eval_launches[entry["name"]]
+        blurball = item7_res["blurball"]["launches_per_step"]
+        if blurball.get(entry["name"]):  # item7 (a): one BlurBall b2 step
+            entry["launches_blurball"] = blurball[entry["name"]]
+        if item7_res["weights_zip"]["launches"].get(entry["name"]):  # item7 (c): one piece
+            entry["launches_weights_zip"] = item7_res["weights_zip"]["launches"][entry["name"]]
     total = time.time() - T0
     if opts.out:
         with open(opts.out, "w") as f:
@@ -5045,7 +5569,7 @@ def main() -> int:
                        "uplifting": uplifting_res,
                        "calib": calib_res, "physics": physics_res, "datagen": datagen_res,
                        "fit": fit_res, "uplift_train": uplift_res,
-                       "closed_loop": closed_res, "total_s": total}, f,
+                       "closed_loop": closed_res, "item7": item7_res, "total_s": total}, f,
                       indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -231,10 +231,12 @@ def test_cli_debug_nans_turns_on_anomaly_detection(fake_tthq, tmp_path, flag):
     assert glob.glob(str(tmp_path / f"runs{suffix}" / "*" / "metrics.jsonl"))
 
 
-@pytest.mark.parametrize("flags,item", [(["--data", "blurball"], "item 7")],
+@pytest.mark.parametrize("flags,match", [(["--data", "blurball"], "no training samples")],
                          ids=["blurball"])
-def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
-    with pytest.raises(ValueError, match=item):
+def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
+    """`--data blurball` trains (tests/test_torch_blurball.py); on a root without the
+    BlurBall layout it refuses before writing anything, where it would train no step."""
+    with pytest.raises(ValueError, match=match):
         T.main(["--data_root", str(tmp_path), "--device", "cpu", *flags])
     assert not os.listdir(tmp_path)
 

@@ -7,6 +7,8 @@ is padded. Both packages get the same weights (the JAX detectors' seeded init, c
 across with flax_to_torch); the ball's main detector is its aux detector, so the ball
 filter keeps every interior frame and the uplifting model runs.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,14 +195,21 @@ def test_default_device_raises_without_cuda(monkeypatch, build):
         ctor()
 
 
-def test_pipeline_refuses_what_is_not_ported():
+def test_pipeline_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    import urllib.error
+
     from upliftingtabletennis_torch.parallel.mesh import make_mesh
+    from upliftingtabletennis_torch.utils import port_reference_weights as PRW
 
     # the mesh is ported (tests/test_torch_parallel.py); a chunk its dp does not divide
     with pytest.raises(ValueError, match="divisible"):
         interface.TableTennisPipeline(chunk=8, mesh=make_mesh(3, devices=["cpu"] * 3))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        hub.full_pipeline(weights_url="file:///weights.zip", device="cpu")
+    # weights_url is ported (tests/test_torch_port_reference_weights.py); a zip that is not
+    # there cannot be fetched, and nothing is cached
+    monkeypatch.setattr(PRW, "CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises((FileNotFoundError, urllib.error.URLError)):
+        hub.full_pipeline(weights_url=f"file://{tmp_path}/missing.zip", device="cpu")
+    assert os.listdir(tmp_path / "cache") == []
 
 
 def test_hub_full_pipeline_on_the_cpu(tmp_path):

@@ -11,6 +11,11 @@ its metadata at `path.json`), converted once from the JAX package's Orbax checkp
     <weights_root>/inference_tabledetection/hrnet/model
     <weights_root>/inference_uplifting/ours/model        (+ model.json)
 
+`full_pipeline(weights_url=...)` takes the reference's released weights zip instead
+(https:// or file://): it is downloaded and extracted once into
+`~/.cache/upliftingtabletennis_torch/weights`, converted once into that layout
+(`utils/port_reference_weights.fetch_and_port`), and read from the cache afterwards.
+
 `download_example_images` renders a folder of example frames of one rally on the card
 (no network): a physics rally, a sampled broadcast camera and the closed loop's renderer.
 """
@@ -55,11 +60,13 @@ def uplifting(checkpoint: Union[None, str, Mapping] = None, device="cuda", **kw)
 def full_pipeline(checkpoints: Optional[dict] = None, weights_root: Optional[str] = None,
                   weights_url: Optional[str] = None, device="cuda", **kw):
     """The whole video -> 3D and spin pipeline on `device`. Checkpoints found under
-    `weights_root` (WEIGHTS_LAYOUT) are overridden by `checkpoints`."""
-    if weights_url is not None:
-        raise NotImplementedError("weights_url needs the network and the reference's weight "
-                                  "port; it is not ported (ROADMAP queue 1, item 7): convert "
-                                  "the weights once and pass weights_root")
+    `weights_root` (WEIGHTS_LAYOUT), or else under the conversion of the reference's
+    weights zip at `weights_url` (`fetch_and_port`, cached), are overridden by
+    `checkpoints`; a slot with no checkpoint gets seeded random weights."""
+    if weights_url is not None and weights_root is None:
+        from upliftingtabletennis_torch.utils.port_reference_weights import fetch_and_port
+
+        weights_root = fetch_and_port(weights_url)
     ck = {}
     if weights_root is not None:
         for key, rel in WEIGHTS_LAYOUT.items():

@@ -24,7 +24,7 @@ Fn = TypeVar("Fn", bound=Callable)
 
 __all__ = ["initialize_multihost", "shutdown", "process_index", "process_count",
            "is_main_process", "main_process_only", "local_batch_slice", "local_device",
-           "all_reduce_mean"]
+           "all_reduce_mean", "all_reduce_sum"]
 
 
 def _env_int(*names) -> Optional[int]:
@@ -115,6 +115,17 @@ def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out)
     return out / process_count()
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over the processes, detached (`t.detach()` when single-process)."""
+    if process_count() == 1:
+        return t.detach()
+    import torch.distributed as dist
+
+    out = t.detach().clone()
+    dist.all_reduce(out)
+    return out
 
 
 def is_main_process() -> bool:

@@ -23,7 +23,17 @@ ViTPose through `F.scaled_dot_product_attention` (the JAX package has no kernel 
 the loss is f32. Validation runs the inference model (an HRNet folded, through K5).
 Random draws (augmentation, ViTPose's drop-path masks) come from a `torch.Generator`
 seeded with `--seed`, not from `jax.random`. Logs go to stdout and, one JSON line per
-validation, to `<logdir>/<identifier>/metrics.jsonl`.
+validation, to `<logdir>/<identifier>/metrics.jsonl`; where `torch.utils.tensorboard`
+imports, rank 0 also writes a TensorBoard run there (the training loss and the PCKs at
+each validation, and the heatmap overlay of the first validation batch,
+`utils/visualization.heatmap_overlay_image`), as the JAX trainer does.
+
+Data: `--data tthq` (the default) or `--data blurball`, the pretraining set
+(`data/detection.py`; 10 epochs by default, the blur streak's ends in the ball's PCK).
+A BlurBall ball run also writes its best checkpoint to
+`<save_dir>/pretraining_blurball/<model>/model.pt`, where `--pretraining` reads it: the
+pretraining -> fine-tuning handoff of the ball detector needs no copy. A table run keeps
+only its own run directory, so it never overwrites the ball's pretrained weights.
 
 Initialisation: `--torch_init` loads the reference's raw pretrained torch weights
 (WASB's `model.pth` for wasb / hrnet, an MAE `mae_pretrain_vit_*.pth` for vitpose; the
@@ -40,8 +50,6 @@ masks from the shared generator and keeps its slice, and runs the model under
 (`models/batch_norm.sync_batch_stats`), as JAX's sharded step does. The default is the
 world size; a batch that the world size does not divide falls back to 1 (every rank then
 runs the whole batch alone). Logs, validation and checkpoints are rank 0's.
-
-Not ported yet (raises, naming the ROADMAP item that ports it): `--data blurball`.
 """
 from __future__ import annotations
 
@@ -73,7 +81,8 @@ from upliftingtabletennis_torch.utils.checkpoint import load_checkpoint, save_ch
 
 __all__ = ["main", "heatmap", "n_points", "loss_fn", "init_adam", "apply_update", "eval_coords",
            "train_step", "infer", "validate", "load_torch_weights", "init_from_torch",
-           "init_hf_backbone", "TRAINABLE_MODELS"]
+           "init_hf_backbone", "overlay_image", "pretraining_path", "warm_start",
+           "TRAINABLE_MODELS"]
 
 TRAINABLE_MODELS = ("segformerpp_b0", "segformerpp_b2", "vitpose", "wasb", "hrnet")
 CLIP_NORM = 5.0
@@ -227,11 +236,59 @@ def validate(eval_model, batches, task, model_wh, eval_wh, dtype=torch.float32):
     return out
 
 
+@torch.no_grad()
+def overlay_image(eval_model, images, coords, vis, model_wh, dtype=torch.float32):
+    """The validation overlay of the first sample of a batch: its centre frame at the
+    model's resolution (de-normalised), the predicted heatmap and the ground truth
+    (`utils/visualization.heatmap_overlay_image`)."""
+    from upliftingtabletennis_torch.data.image_transforms import IMAGENET_MEAN, IMAGENET_STD
+    from upliftingtabletennis_torch.utils.visualization import heatmap_overlay_image
+
+    imgs, c_model, v = augment_detection_batch(None, images[:1], coords[:1], vis[:1],
+                                               model_wh, train=False)
+    heat = heatmap(eval_model(imgs.to(dtype))).permute(0, 3, 1, 2).float()
+    x0 = imgs[0].float().cpu().numpy()
+    center = x0[..., 3:6] if x0.shape[-1] == 9 else x0[..., :3]
+    center = (center * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)) * 255.0
+    gt = np.concatenate([c_model[0].cpu().numpy(), v[0].cpu().numpy()[:, None]], -1)
+    return heatmap_overlay_image(center, heat[0].cpu().numpy(), gt_coords=gt)
+
+
+def pretraining_path(save_dir: str, model: str) -> str:
+    """Where a BlurBall ball run keeps its best checkpoint and `--pretraining` reads it."""
+    return os.path.join(save_dir, "pretraining_blurball", model, "model.pt")
+
+
+def warm_start(model, path: str, what: str):
+    """Load the checkpoint at `path` into `model`, every tensor at its shape, as the JAX
+    trainer takes the warm tree whole. Returns (tensors loaded, tensors of the model);
+    raises ValueError when the checkpoint does not fit (`what` names the model)."""
+    warm = load_checkpoint(path)[0]
+    target = model.state_dict()
+    fits = {k: v for k, v in warm.items() if k in target and v.shape == target[k].shape}
+    missing = model.load_state_dict(fits, strict=False).missing_keys
+    n_loaded = len(target) - len(missing)
+    if missing or len(fits) < len(warm):
+        raise ValueError(f"{path} does not fit {what}: loaded {n_loaded}/{len(target)} "
+                         f"tensors, {len(warm) - len(fits)} of the checkpoint's left over")
+    return n_loaded, len(target)
+
+
+def summary_writer(log_dir: str):
+    """A TensorBoard writer at log_dir where `torch.utils.tensorboard` imports, else None."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
+
+
 def _parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--task", choices=["ball", "table"], default="ball")
     p.add_argument("--model", type=str, default="segformerpp_b2")
-    p.add_argument("--data", choices=["tthq", "blurball"], default="tthq")
+    p.add_argument("--data", choices=["tthq", "blurball"], default="tthq",
+                   help="blurball: the pretraining set")
     p.add_argument("--data_root", type=str, required=True)
     p.add_argument("--pretraining", action="store_true",
                    help="warm-start from <save_dir>/pretraining_blurball/<model>/model.pt")
@@ -248,7 +305,7 @@ def _parser():
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--num_epochs", type=int, default=None,
-                   help="default: 50 for the ball, 700 for the table")
+                   help="default: 10 on blurball, 50 for the ball and 700 for the table on tthq")
     p.add_argument("--val_iterations", type=int, default=500)
     p.add_argument("--val_samples", type=int, default=None,
                    help="cap the validation set (default: a full pass)")
@@ -285,8 +342,6 @@ def _check_args(args):
     if args.model not in TRAINABLE_MODELS:
         raise ValueError(f"--model {args.model}: unknown; the trainable detectors are "
                          f"{TRAINABLE_MODELS}")
-    if args.data == "blurball":
-        raise ValueError("--data blurball: the BlurBall readers are ROADMAP queue 1 item 7")
     if args.hf_backbone and "segformer" not in args.model:
         raise ValueError("--hf_backbone needs a segformer model")
 
@@ -360,7 +415,7 @@ def main(argv=None):
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if args.num_epochs is None:
-        args.num_epochs = 50 if args.task == "ball" else 700
+        args.num_epochs = 10 if args.data == "blurball" else (50 if args.task == "ball" else 700)
     device = resolve_device(args.device)
     started = dist_util.initialize_multihost(device=device)
     try:
@@ -389,25 +444,30 @@ def _train(args, device):
 
     use_invis = not args.not_use_invis
     if task == "ball":
-        index_tr = D.load_tthq_ball_index(args.data_root, "train", use_invisible=use_invis)
-        index_va = D.load_tthq_ball_index(args.data_root, "val", use_invisible=use_invis)
+        index_fn, batch_fn = ((D.load_tthq_ball_index, D.load_ball_batch) if args.data == "tthq"
+                              else (D.load_blurball_index, D.load_blurball_ball_batch))
+        index_tr = index_fn(args.data_root, "train", use_invisible=use_invis)
+        index_va = index_fn(args.data_root, "val", use_invisible=use_invis)
 
         def load(root, samples):
-            return D.load_ball_batch(root, samples, in_frames=in_frames)
+            return batch_fn(root, samples, in_frames=in_frames)
     else:
-        index_tr = D.load_tthq_table_index(args.data_root, "train")
-        index_va = D.load_tthq_table_index(args.data_root, "val")
-        load = D.load_table_batch
+        index_fn, load = ((D.load_tthq_table_index, D.load_table_batch) if args.data == "tthq"
+                          else (D.load_blurball_table_index, D.load_blurball_table_batch))
+        index_tr = index_fn(args.data_root, "train")
+        index_va = index_fn(args.data_root, "val")
     say(f"[data] {args.data}: {len(index_tr)} train / {len(index_va)} val samples")
+    if not index_tr:  # the JAX trainer would run its epochs without a step
+        raise ValueError(f"--data {args.data}: no training samples under {args.data_root}")
     say(f"[parallel] dp={dp} process(es) of {world}")
 
     init_weights(model, args.seed)
     init_ckpt = args.init_checkpoint
     if init_ckpt is None and args.pretraining:
-        init_ckpt = os.path.join(args.save_dir, "pretraining_blurball", args.model, "model.pt")
+        init_ckpt = pretraining_path(args.save_dir, args.model)
     if init_ckpt:
-        model.load_state_dict(load_checkpoint(init_ckpt)[0])
-        say(f"[init] warm-started from {init_ckpt}")
+        n_loaded, n_total = warm_start(model, init_ckpt, f"{task}/{args.model}")
+        say(f"[init] warm-started from {init_ckpt}: loaded {n_loaded}/{n_total} tensors")
     if args.torch_init:
         n_loaded, n_total = init_from_torch(model, args.torch_init, args.model, in_frames)
         say(f"[init] loaded {n_loaded}/{n_total} tensors from {args.torch_init}")
@@ -438,8 +498,10 @@ def _train(args, device):
                "heatmap_sigma": args.heatmap_sigma, "use_invis": use_invis,
                "exp_id": args.exp_id, "data": args.data}
     log_dir = os.path.join(args.logdir, identifier)
+    writer = None
     if main_rank:
         os.makedirs(log_dir, exist_ok=True)
+        writer = summary_writer(log_dir)
 
     def ema_model():
         """The eval model with the EMA weights and the current batch statistics."""
@@ -464,34 +526,50 @@ def _train(args, device):
     loss = None
     steps_per_epoch = len(index_tr) // args.batch_size
     rng_np = np.random.default_rng(args.seed)
-    for epoch in range(args.num_epochs):
-        order = rng_np.permutation(len(index_tr))
+    try:
+        for epoch in range(args.num_epochs):
+            order = rng_np.permutation(len(index_tr))
 
-        def make_batch(i):
-            sel = [index_tr[j] for j in order[i * args.batch_size:(i + 1) * args.batch_size]]
-            return load(args.data_root, sel if shard is None else sel[shard[0]])
+            def make_batch(i):
+                sel = [index_tr[j] for j in order[i * args.batch_size:(i + 1) * args.batch_size]]
+                return load(args.data_root, sel if shard is None else sel[shard[0]])
 
-        for batch in D.Prefetcher(make_batch, steps_per_epoch):
-            loss = train_step(net, params, opt_state, ema, gen, *_to_device(device, *batch),
-                              (MW, MH), (EW, EH), aug_cfg, args.heatmap_sigma, args.lr,
-                              args.ema_decay, dtype, shard)
-            it += 1
-            done = bool(args.max_steps and it >= args.max_steps)
-            if main_rank and (it % args.val_iterations == 0 or done):
-                metrics = validate(ema_model(), val_batches(), task, (MW, MH), (EW, EH), dtype)
-                print(f"it {it}: loss {float(loss):.4f} {metrics}", flush=True)
-                with open(os.path.join(log_dir, "metrics.jsonl"), "a") as f:
-                    f.write(json.dumps({"it": it, "loss": float(loss), **metrics}) + "\n")
-                if metrics.get("pck5", -1) > best_pck5:
-                    best_pck5 = metrics["pck5"]
-                    state = eval_model.state_dict()  # the EMA weights, the batch statistics
-                    save_checkpoint(os.path.join(args.save_dir, identifier, "model.pt"), state,
-                                    identifier, {"epoch": epoch, **hparams})
-            if done:
-                say(f"[done] max_steps reached, final loss {float(loss):.4f}")
-                return
-        if loss is not None:
-            say(f"epoch {epoch}: loss {float(loss):.4f}")
+            for batch in D.Prefetcher(make_batch, steps_per_epoch):
+                loss = train_step(net, params, opt_state, ema, gen, *_to_device(device, *batch),
+                                  (MW, MH), (EW, EH), aug_cfg, args.heatmap_sigma, args.lr,
+                                  args.ema_decay, dtype, shard)
+                it += 1
+                done = bool(args.max_steps and it >= args.max_steps)
+                if main_rank and (it % args.val_iterations == 0 or done):
+                    metrics = validate(ema_model(), val_batches(), task, (MW, MH), (EW, EH), dtype)
+                    print(f"it {it}: loss {float(loss):.4f} {metrics}", flush=True)
+                    with open(os.path.join(log_dir, "metrics.jsonl"), "a") as f:
+                        f.write(json.dumps({"it": it, "loss": float(loss), **metrics}) + "\n")
+                    if writer is not None:
+                        writer.add_scalar("train/loss", float(loss), it)
+                        for mk, mv in metrics.items():
+                            writer.add_scalar(f"val/{mk}", mv, it)
+                        if len(index_va):
+                            first = _to_device(device, *load(args.data_root, index_va[:1]))
+                            writer.add_image("val/overlay", overlay_image(
+                                eval_model, *first, (MW, MH), dtype), it, dataformats="HWC")
+                    if metrics.get("pck5", -1) > best_pck5:
+                        best_pck5 = metrics["pck5"]
+                        state = eval_model.state_dict()  # the EMA weights, the batch statistics
+                        info = {"epoch": epoch, **hparams}
+                        save_checkpoint(os.path.join(args.save_dir, identifier, "model.pt"), state,
+                                        identifier, info)
+                        if args.data == "blurball" and task == "ball":
+                            save_checkpoint(pretraining_path(args.save_dir, args.model), state,
+                                            identifier, info)
+                if done:
+                    say(f"[done] max_steps reached, final loss {float(loss):.4f}")
+                    return
+            if loss is not None:
+                say(f"epoch {epoch}: loss {float(loss):.4f}")
+    finally:
+        if writer is not None:
+            writer.close()
 
 if __name__ == "__main__":
     main()

@@ -13,6 +13,12 @@ to the parameters), then the EMA of the parameters, ema = d ema + (1 - d) params
 optimizer runs over the parameter list with `torch._foreach_*`: a handful of launches per
 operation, not one per tensor. Parameters and the optimizer state are f32, as in JAX.
 
+Data parallelism (`train_step(..., ddp=...)`, one rank's slice of the global batch under
+`DistributedDataParallel`): the loss is not a mean over samples, so each rank divides
+its masked position sum by the mask summed over the whole batch (all-reduced) and scales
+its loss by the world size; DDP's mean of the ranks' gradients is then the global batch's
+gradient, which the clip, Adam and the EMA see on every rank.
+
 `eval_step` and `val2d_step` give the summed validation metrics of a batch (the caller
 divides by the count); `spin_classification_metrics` is host numpy, with the ROC-AUC as
 the Mann-Whitney rank statistic (ties averaged), which needs no scikit-learn.
@@ -26,6 +32,7 @@ import torch
 
 from upliftingtabletennis_torch.core.geometry import (HEIGHT, WIDTH, transform_rotation_axes,
                                                       world2img)
+from upliftingtabletennis_torch.parallel import distributed as dist_util
 
 __all__ = ["CLIP_NORM", "ADAM_B1", "ADAM_B2", "ADAM_EPS", "Batch", "TrainState", "batch_from",
            "init_train_state", "loss_fn", "apply_update", "train_step", "eval_step",
@@ -70,16 +77,22 @@ def init_train_state(model: torch.nn.Module) -> TrainState:
                       [0])
 
 
-def loss_fn(model, batch: Batch, transform_mode: str = "global"):
+def loss_fn(model, batch: Batch, transform_mode: str = "global", mask_total=None,
+            world: int = 1):
     """(loss, (loss_rot, loss_pos)) of the model on the batch; with transform_mode 'local'
-    the network predicts the spin in the ball's flight frame."""
+    the network predicts the spin in the ball's flight frame. For one rank's slice of a
+    global batch: mask_total, the mask summed over the global batch (the position term's
+    divisor), and world, the number of ranks, which scales the loss returned; loss_rot and
+    loss_pos are then the rank's shares of the global batch's terms."""
     pred_rot, pred_pos = model(batch.ball_img, batch.table_img, batch.mask, batch.times)
     rotation = batch.rotation
     if transform_mode == "local":
         rotation = transform_rotation_axes(rotation, batch.r_world)
     loss_rot = torch.sqrt(((pred_rot - rotation) ** 2).sum(1) + 1e-12).sum()
-    loss_pos = (((pred_pos - batch.r_world) ** 2) * batch.mask[..., None]).sum() / batch.mask.sum()
-    return loss_rot + loss_pos, (loss_rot, loss_pos)
+    denom = batch.mask.sum() if mask_total is None else mask_total
+    loss_pos = (((pred_pos - batch.r_world) ** 2) * batch.mask[..., None]).sum() / denom
+    loss = loss_rot + loss_pos
+    return world * loss, (loss_rot, loss_pos)
 
 
 @torch.no_grad()
@@ -117,10 +130,25 @@ def apply_update(state: TrainState, grads, lr: float = 1e-4, ema_decay: float = 
 
 
 def train_step(model, state: TrainState, batch: Batch, lr: float = 1e-4,
-               ema_decay: float = 0.999, transform_mode: str = "global") -> Dict[str, torch.Tensor]:
-    """Forward, backward, `apply_update`. Returns the losses as device scalars (no sync)."""
-    loss, (loss_rot, loss_pos) = loss_fn(model, batch, transform_mode)
-    grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+               ema_decay: float = 0.999, transform_mode: str = "global",
+               ddp=None) -> Dict[str, torch.Tensor]:
+    """Forward, backward, `apply_update`. Returns the losses as device scalars (no sync).
+
+    ddp: `model` wrapped in `DistributedDataParallel`, `batch` this rank's slice of the
+    global batch; the gradients and the losses returned are the global batch's."""
+    if ddp is None:
+        loss, (loss_rot, loss_pos) = loss_fn(model, batch, transform_mode)
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+    else:
+        loss, (loss_rot, loss_pos) = loss_fn(ddp, batch, transform_mode,
+                                             dist_util.all_reduce_sum(batch.mask.sum()),
+                                             dist_util.process_count())
+        loss.backward()  # DDP averages the gradients over the ranks
+        grads = [p.grad for p in state.params]
+        for p in state.params:
+            p.grad = None
+        loss_rot, loss_pos = dist_util.all_reduce_sum(torch.stack([loss_rot, loss_pos]))
+        loss = loss_rot + loss_pos
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
     apply_update(state, grads, lr, ema_decay)
     return {"loss": loss.detach(), "loss_rot": loss_rot.detach(), "loss_pos": loss_pos.detach()}
