@@ -8,8 +8,11 @@ Phases (each prints one line with what it measured and the seconds elapsed):
 1. env      the card's name and power limit (nvidia-smi);
 2. build    compile the port's CUDA kernels from `upliftingtabletennis_torch/ops/csrc`
             into `upliftingtabletennis_torch/_build/` (one nvcc per source, in parallel);
-            count the warpgroup products, TMA loads and stores and mma.sync products in
-            K3's and K5's SASS (`cuobjdump`, where the toolkit has it);
+            meanwhile the host work of later phases that needs no kernel (item7's tree,
+            `rally_inputs`, `hrnet_conv_shapes`); after the kernel phases, on a thread of
+            its own, count the warpgroup products, TMA loads and stores and mma.sync
+            products in K3's and K5's SASS (`cuobjdump`, where the toolkit has it; the line
+            `[sass]`);
 3. k1       K1 (fused attention half-block) against its plain PyTorch version, run in
             f32 on the same bf16 inputs, at the four SegFormer-b2 stage shapes of the
             1600x896 ball model, on two input sets (keys of std 1, and of std 3 where the
@@ -124,8 +127,9 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             gradients 5e-2, running statistics 1e-3), with planted faults that must break
             them (the drop path without `/ keep`, the head's BatchNorms on their running
             statistics in training, and at 32x32 the unbiased variance); the CPU's steps
-            run on the closed loop's low-priority worker; (c) `run_detection --model vitpose
-            --torch_init` on a synthetic MAE checkpoint for 2 steps on a tiny TTHQ layout:
+            and these limits run beside the card tests (phase card_tests); (c)
+            `run_detection --model vitpose --torch_init` on a synthetic MAE checkpoint for
+            2 steps on a tiny TTHQ layout:
             it prints the counts `utils/port_torch.torch_init_detector` gives, and its
             checkpoint loads into `BallDetector`; (d) world size 1: one segformerpp_b0
             trainer step under DDP over NCCL against the same step without DDP (loss and
@@ -138,12 +142,14 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             frames at 50 fps through `TableTennisPipeline.run_rally`, the main path: launches
             per piece (32 K1, 32 K2, 80 K5a, 28 K5b; half of each on a ball-only piece of
             `table_stride` 16) with every count set to 0 just before and read just after;
-            frames/s (one warm call each; RALLY_CALLS) in rgb and i420, with upload_res
+            frames/s (one warm call each, RALLY_CALLS, after the counted ones) in rgb
+            and i420 (`rally_inputs`, made during the build), with upload_res
             "model" and None, table_stride 1 and 2; the host downscale's ms per frame and
             the rate it would leave if it overlapped nothing (`no_overlap_frames_per_s`); every
             detector's peaks through the slab step (`_rally_peaks`) on 29 frames (triplets
-            across piece edges, a padded last piece) against the detector's own `predict`
-            within 1e-3 px; rgb against i420 (shapes equal, the largest peak difference);
+            across piece edges, a padded last piece) against the same detector's own
+            `predict` within 1e-3 px; rgb against i420 (shapes equal, the largest peak
+            difference);
             i420 -> RGB of the 64 frames on the card against the CPU within 1 grey level;
             the uplifting tail (a pipeline whose ball aux is its ball main, so the filter
             keeps every interior frame): pos3d and the world-frame spin against the CPU f32
@@ -160,9 +166,11 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             of each direction over 500 frames, tangent mode on fit_physics's 32 starts over
             502 frames; per trajectory |dr| <= 1e-4 m, |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s
             and dr/dq within 1e-3 of its largest, all but S1_KNIFE_EDGES, and every output
-            bit-equal at both shapes; planted faults (the net left out of the contacts, one
-            tangent direction zeroed) that must fail those limits; ms per call (and back to
-            back) and SM cycles per step, the plain version's time, the bound (bytes,
+            bit-equal at both shapes (the plain version run as one captured step replayed,
+            a CUDA graph of its own kernels: `graph=True`); planted faults (the net left
+            out of the contacts, one tangent direction zeroed) that must fail those limits;
+            ms per call (and back to back) and SM cycles per step, the plain version's
+            time (its graph replay, capture included), the bound (bytes,
             operations, and the serial chain worked out from the code at the latencies of
             physics.cu's op_latency_kernel); the kernel on one trajectory, beside it; the
             tangent also at the physics-fit evaluation's 512 starts; ptxas' registers and
@@ -172,13 +180,13 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             against IEEE on 2^30 operand pairs (`fast_ops=`, gated);
 21. datagen `generate_dataset("intermediate")` at batch 8,192 until 1,024 accepted, cold and
             warm: trajectories/s, the acceptance rate, 1 S1 launch per batch; the first
-            batch's candidates on the CPU's plain path against the card's (accept mask and
-            bounce counts on at least 99.5% of them);
+            batch's candidates on the CPU's plain path (run beside the card tests) against
+            the card's (accept mask and bounce counts on at least 99.5% of them);
 22. fit     `TableTennisPipeline.fit_physics` at its defaults (32 starts, 250 Adam, 12 LM
             steps: 262 tangent and 14 forward S1 launches per call) on tests/test_fitting.py's
             topspin and backspin states observed through the simulation camera at 50 fps over
             the JAX tests' 0.46 s and over 1 s, and on one accepted datagen trajectory over
-            1 s (the 0.46 s cases cold and warm, the 1 s ones once): seconds per fit,
+            1 s (each once): seconds per fit,
             reproj_px, basin_spread_m, the mean 3D
             error against the truth and the spin class (gates on the two test states over
             0.46 s: under 10 cm and the right class); one warm start (`init=`) from the
@@ -213,8 +221,8 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             package's numbers, ms per rally; the kernel path's ball and table peaks on one
             rally's frames against a `kernels=False` f32 copy's; (b) one training step of
             WASB (batch 2, 960x544) and the table HRNet with remat, on the card and on the
-            CPU in f32 from the same weights and batch (the CPU's steps start after the
-            build, on a low-priority thread): the loss, every gradient and the
+            CPU in f32 from the same weights and batch (the CPU's steps, and the limits
+            that read them, beside the card tests): the loss, every gradient and the
             running statistics, a planted fault (the statistics moved again by the remat
             recompute) that must fail, and the unbiased-variance fault's error; ms per
             bf16 step and peak memory with and without remat at 960x544 batch 2 and at
@@ -248,7 +256,14 @@ Phases (each prints one line with what it measured and the seconds elapsed):
             second call served by the cache; (d) `extract_ttst` on a two-event raw layout at 2560x1440 (each
             camera within 2 px of the truth, at least 6 inliers), `annotation_qa` on a
             planted left/right swap, `one_euro_trajectory` on the card against the CPU;
-26. hygiene  neither JAX nor the JAX package was imported.
+26. card_tests the card's unit tests (`tests/test_torch_cuda_kernels.py`,
+            `tests/test_torch_cuda_uplifting.py`) in a child pytest on the kernels the
+            build left (a library built anew fails the run), after the parent frees its
+            cached device memory, beside the earlier phases' CPU references and the gates
+            that read them: the counts of passed, failed, errors and skipped, and the
+            seconds; any failure or error, or fewer than CARD_TESTS_MIN passed, fails the
+            run;
+27. hygiene  neither JAX nor the JAX package was imported.
 
 Any failed phase raises and the exit code is not 0. Without CUDA, or without the
 port's package beside it, it exits non-zero before printing any result. The line
@@ -260,6 +275,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -422,11 +438,12 @@ SLAB_TOL_PX = 1e-3
 # where that step is short, does not enter the comparison.
 UPLIFT_RTOL = 1e-4
 UPLIFT_LENGTHS = (50, 12)  # a full sequence and one padded to SEQUENCE_LEN
+UPLIFT_WARM_CALLS, UPLIFT_TIMED_CALLS = 2, 5  # ms per call: the median of the timed calls
 # the calibration: a broadcast camera at 1920x1080, 1 px noise, keypoint 3 moved by
 # (300, -200) px; tests/test_calibration.py's bounds: the others within 3 px on average,
 # the outlier beyond 50 px
 CALIB_RES, CALIB_NOISE_PX, CALIB_OUTLIER = (1920, 1080), 1.0, (3, (300.0, -200.0))
-CALIB_MEAN_PX, CALIB_OUTLIER_PX, CALIB_CALLS = 3.0, 50.0, 2
+CALIB_MEAN_PX, CALIB_OUTLIER_PX, CALIB_CALLS = 3.0, 50.0, 1
 
 # S1, the integrator (ops/csrc/physics.cu): forward mode at the datagen batch (8,192
 # "intermediate" candidates, 500 frames, each direction), tangent mode at the fit's shape
@@ -447,7 +464,7 @@ S1_LAT_CHAIN = 4096  # dependent operations per kind in physics.cu's op_latency_
 S1_FAULT_DIRECTION = 4  # the planted tangent fault zeroes d r / d v0_y
 S1_EVAL_STARTS = 512  # run_physics_fit_eval's tangent launches: 16 tracks x 32 starts
 # the fit: fit_physics at its defaults (32 starts, 250 Adam and 12 LM steps), each fit
-# cold and warm, on tests/test_fitting.py's topspin and backspin states observed through
+# once, on tests/test_fitting.py's topspin and backspin states observed through
 # the simulation camera at 50 fps, over the JAX tests' window (24 detections, 0.46 s) and
 # over 1 s (50 detections), and on one accepted datagen trajectory over 1 s. Gates, as
 # the JAX tests set them (on their window): mean 3D error under 10 cm and the spin class,
@@ -556,8 +573,8 @@ CL_CLI_STEPS, CL_CLI_RES = 2, (960, 544)
 # committed WASB and b0 at their trained 960x544 on a TTHQ layout of EV_DET_FRAMES frames
 # of a held-out rendered rally (the truth as labels; the test split is every other
 # sample), EV_DET_LIMIT[task] test samples each, the card's against the CPU's f32 under the
-# peak rule of CL_PEAK_* over both tasks' detections (the CPU's run on the low-priority
-# worker of (b)'s CPU steps, beside the earlier phases); the physics-fit
+# peak rule of CL_PEAK_* over both tasks' detections (the CPU's run beside the card
+# tests, as (b)'s CPU steps do); the physics-fit
 # evaluation's store protocol on EV_FIT_TRAJ test trajectories at its defaults (one batch:
 # FIT_LAUNCHES S1 launches); `compare_speed` of WASB and b0 at batch 8, EV_SPEED_ITERS
 # forwards; `download_example_images`, and `run_rally` on its frames.
@@ -594,6 +611,11 @@ I7_ZIP_FRAMES = 8  # one run_rally piece
 I7_TTST_RES = (2560, 1440)
 I7_PX_TOL, I7_MIN_INLIERS = 2.0, 6
 I7_SMOOTH_TOL = 1e-6
+# phase card_tests: the card's unit tests (odd shapes, limits and gradient routes that the
+# phases do not cover) in a child pytest on the built kernels; every case must pass, and at
+# least CARD_TESTS_MIN of them (the count the two files held when the phase came in)
+CARD_TEST_FILES = ("tests/test_torch_cuda_kernels.py", "tests/test_torch_cuda_uplifting.py")
+CARD_TESTS_MIN, CARD_TESTS_TIMEOUT_S = 223, 600
 # the CUDA API calls that launch a kernel, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 CARD = ""  # nvidia-smi's name and power limit, set by main
@@ -613,6 +635,12 @@ def sass_counts(_build, sources, ops=("HGMMA", "UTMALDG", "UTMASTG", "HMMA")):
                               text=True, check=True).stdout
         counts[src] = {op: len([w for w in sass.split() if w.split(".")[0] == op]) for op in ops}
     return counts
+
+
+def timed(fn, *args):
+    """(fn(*args), its seconds on the host's clock)."""
+    t = time.time()
+    return fn(*args), time.time() - t
 
 
 def log(phase: str, **kv) -> None:
@@ -697,21 +725,44 @@ def k3_bound(B, Nq, Nkv, heads, hd):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+_MADE = {}  # inputs made once and shared by the phases (most during the build)
+
+
 def synthetic_frames(n_frames: int):
     """(n_frames, 1080, 1920, 3) uint8: a textured background and a bright Gaussian
-    blob moving across the frames."""
+    blob moving across the frames. Frame t is the same whatever n_frames, so every call
+    copies the first frames of one set of max(n_frames, RALLY_FRAMES), made once."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:1080, 0:1920].astype(np.float32)
-    bg = 90 + 40 * np.sin(xx / 37.0)[..., None] * np.cos(yy / 23.0)[..., None] \
-        + rng.normal(0, 12, (1080, 1920, 3)).astype(np.float32)
-    frames = []
-    for t in range(n_frames):
-        cx, cy = 300 + 140 * t, 700 - 45 * t
-        blob = 160 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 6.0**2))
-        frames.append(np.clip(bg + blob[..., None], 0, 255).astype(np.uint8))
-    return np.stack(frames)
+    made = _MADE.get("frames")
+    if made is None or len(made) < n_frames:
+        rng = np.random.default_rng(0)
+        yy, xx = np.mgrid[0:1080, 0:1920].astype(np.float32)
+        bg = 90 + 40 * np.sin(xx / 37.0)[..., None] * np.cos(yy / 23.0)[..., None] \
+            + rng.normal(0, 12, (1080, 1920, 3)).astype(np.float32)
+        frames = []
+        for t in range(max(n_frames, RALLY_FRAMES)):
+            cx, cy = 300 + 140 * t, 700 - 45 * t
+            blob = 160 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 6.0**2))
+            frames.append(np.clip(bg + blob[..., None], 0, 255).astype(np.uint8))
+        made = _MADE["frames"] = np.stack(frames)
+    return made[:n_frames].copy()
+
+
+def rally_inputs(torch):
+    """The rally phase's 64 frames in rgb and in i420 (`rgb_to_i420`, on the host), and
+    the CPU's `i420_to_rgb` of the i420 frames (the reference of the card's), made once."""
+    if "rally" not in _MADE:
+        import numpy as np
+
+        from upliftingtabletennis_torch.data.image_transforms import i420_to_rgb, rgb_to_i420
+
+        frames = synthetic_frames(RALLY_FRAMES)
+        with ThreadPoolExecutor(max_workers=4) as pool:  # numpy frees the GIL: 4 at once
+            i420 = np.concatenate(list(pool.map(rgb_to_i420, np.array_split(frames, 4))))
+        _MADE["rally"] = ({"rgb": frames, "i420": i420},
+                          i420_to_rgb(torch.from_numpy(i420), 1080, 1920))
+    return _MADE["rally"]
 
 
 def compare(torch, got, want, atol=ATOL, rtol=RTOL):
@@ -840,11 +891,13 @@ def run_k1(torch, F, ops, gen, profile=False):
         ms, plain_ms, stock_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
             time_ms(torch, stock)
         ms_pipe, stock_pipe = pipelined_ms(torch, kernel), pipelined_ms(torch, stock)
+        host_us = host_us_per_call(torch, kernel)
         breakdown = kernel_breakdown(torch, kernel) if profile else None
         bound_ms, bound_by = k1_bound(B, N, C, heads, Nkv)
         plan = attention_plan(B, N, C, heads)
         e = dict(shape=dict(B=B, N=N, C=C, heads=heads, Nkv=Nkv), depth=depth, ms=ms,
-                 plain_ms=plain_ms, library_ms=stock_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 host_us=host_us, plain_ms=plain_ms, library_ms=stock_ms, bound_ms=bound_ms,
+                 bound_by=bound_by,
                  ms_pipelined=ms_pipe, library_ms_pipelined=stock_pipe, device_us=breakdown,
                  max_abs_err=max(max_abs, sharp_abs), max_rel_err=max_rel,
                  sharp_max_abs_err=sharp_abs, faults_caught=caught,
@@ -852,7 +905,7 @@ def run_k1(torch, F, ops, gen, profile=False):
                  blocks=[g for g in (plan["ln_grid"], plan["attention_grid"], plan["proj_grid"]) if g])
         log("k1", H=H, W=W, C=C, heads=heads, max_abs_err=f"{max_abs:.4g}",
             sharp_max_abs_err=f"{sharp_abs:.4g}", max_rel_err=f"{max_rel:.4g}", ms=f"{ms:.4f}",
-            stock_ms=f"{stock_ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
+            host_us=f"{host_us:.1f}", stock_ms=f"{stock_ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
             stock_ms_pipelined=f"{stock_pipe:.4f}", plain_ms=f"{plain_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by, faults_caught=json.dumps(caught), ok=ok and sharp_ok)
@@ -949,18 +1002,19 @@ def run_k2(torch, F, ops, gen, profile=False):
         ms, plain_ms, stock_ms = time_ms(torch, kernel), time_ms(torch, plain, iters=5), \
             time_ms(torch, stock)
         ms_pipe, stock_pipe = pipelined_ms(torch, kernel), pipelined_ms(torch, stock)
+        host_us = host_us_per_call(torch, kernel)
         breakdown = kernel_breakdown(torch, kernel) if profile else None
         bound_ms, bound_by = k2_bound(B, N, C, HID)
         e = dict(shape=dict(B=B, H=H, W=W, C=C, HID=HID), route=plan.route,
                  ms_pipelined=ms_pipe, library_ms_pipelined=stock_pipe, device_us=breakdown,
                  tile=[plan.th, plan.tw],
                  blocks=[g for g in (plan.ln_grid, plan.fc1_grid, plan.grid, plan.fc2_grid) if g],
-                 depth=depth, ms=ms,
+                 depth=depth, ms=ms, host_us=host_us,
                  plain_ms=plain_ms, library_ms=stock_ms, bound_ms=bound_ms, bound_by=bound_by,
                  max_abs_err=max_abs, max_rel_err=max_rel, faults_caught=caught, other_route=alt)
         log("k2", H=H, W=W, C=C, route=plan.route, tile=f"{plan.th}x{plan.tw}",
             max_abs_err=f"{max_abs:.4g}", max_rel_err=f"{max_rel:.4g}", ms=f"{ms:.4f}",
-            stock_ms=f"{stock_ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
+            host_us=f"{host_us:.1f}", stock_ms=f"{stock_ms:.4f}", ms_pipelined=f"{ms_pipe:.4f}",
             stock_ms_pipelined=f"{stock_pipe:.4f}", plain_ms=f"{plain_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, faults_caught=json.dumps(caught),
             other_route=json.dumps(alt), ok=ok)
@@ -1352,10 +1406,13 @@ def k5_bound(ks, B, H, W, Ci, Co, residual):
 def hrnet_conv_shapes(torch):
     """{(ks, Ci, Co, H, W, residual, relu): [per WASB forward, per table-HRNet forward]}
     of the stride-1 convs, recorded from one forward of each HRNet at 1280x704 on the
-    meta device (shapes only, no data): the graph K5 runs on the main path."""
+    meta device (shapes only, no data): the graph K5 runs on the main path. Recorded once
+    per process (the phases k5 and hrnet read the same record)."""
     from upliftingtabletennis_torch.models import hrnet
     from upliftingtabletennis_torch.models.factory import get_detector
 
+    if "hrnet_conv_shapes" in _MADE:
+        return dict(_MADE["hrnet_conv_shapes"])
     shapes = collections.defaultdict(lambda: [0, 0])
     saved = hrnet.conv3x3_bias_act_plain, hrnet.conv1x1_bias_act_plain
 
@@ -1380,7 +1437,8 @@ def hrnet_conv_shapes(torch):
         per_ks = {k: sum(n[col] for key, n in shapes.items() if key[0] == k) for k in (3, 1)}
         if per_ks != {3: K5A_PER_FORWARD, 1: K5B_PER_FORWARD}:
             raise AssertionError(f"one HRNet forward runs {per_ks} stride-1 convs")
-    return shapes
+    _MADE["hrnet_conv_shapes"] = dict(shapes)
+    return dict(shapes)
 
 
 def k5_routes(torch):
@@ -2191,17 +2249,19 @@ def run_k4(torch, F, ops, gen):
         piped = {k: pipelined_ms(torch, f) for k, f in (("fwd", kernel), ("fwd_lib", library),
                                                         ("bwd", backward),
                                                         ("bwd_lib", library_backward))}
+        host_us = {k: host_us_per_call(torch, f) for k, f in (("fwd", kernel), ("bwd", backward))}
         bound_ms, bound_by = k4_bound(B, H, W, C)
         bwd_bound_ms, bwd_bound_by = k4_bwd_bound(B, H, W, C)
         shape = dict(B=B, H=H, W=W, C=C)
         fwd_entries.append(dict(
-            shape=shape, depth=depth, plan=plans[0]._asdict(), ms=ms,
+            shape=shape, depth=depth, plan=plans[0]._asdict(), ms=ms, host_us=host_us["fwd"],
             ms_pipelined=piped["fwd"], plain_ms=plain_ms, library_ms=lib_ms,
             library_ms_pipelined=piped["fwd_lib"], bound_ms=bound_ms, bound_by=bound_by,
             max_abs_err=fwd_abs, library_vs_kernel_max_abs=lib_err))
         bwd_entries.append(dict(
             shape=shape, depth=depth, plan=plans[1]._asdict(), ms=bwd_ms,
-            ms_pipelined=piped["bwd"], plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
+            host_us=host_us["bwd"], ms_pipelined=piped["bwd"], plain_ms=bwd_plain_ms,
+            library_ms=bwd_lib_ms,
             library_ms_pipelined=piped["bwd_lib"], bound_ms=bwd_bound_ms,
             bound_by=bwd_bound_by, max_abs_err=max(dx_abs, dw_abs, db_abs),
             dx_max_abs_err=dx_abs, dw_max_abs_err=dw_abs, db_max_abs_err=db_abs,
@@ -2211,6 +2271,7 @@ def run_k4(torch, F, ops, gen):
         log("k4", B=B, H=H, W=W, C=C, fwd_max_abs_err=f"{fwd_abs:.4g}",
             dx_max_abs_err=f"{dx_abs:.4g}", dw_max_abs_err=f"{dw_abs:.4g}",
             db_max_abs_err=f"{db_abs:.4g}", repeat_bitwise=repeat, ms=f"{ms:.4f}",
+            host_us=f"{host_us['fwd']:.1f}", bwd_host_us=f"{host_us['bwd']:.1f}",
             ms_pipelined=f"{piped['fwd']:.4f}", conv2d_ms=f"{lib_ms:.4f}",
             conv2d_ms_pipelined=f"{piped['fwd_lib']:.4f}", plain_ms=f"{plain_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
@@ -2616,23 +2677,39 @@ def vt_case(torch, size):
     return f"{W}x{H}_b{B}", base, x, target, draw_drop_masks(g, B)
 
 
-def vt_cpu_reference(torch, size):
-    """A case of (b) and the CPU's f32 step on it, built and run at the lowest priority
-    (as `hr_cpu_reference`). Returns (case, the step, seconds)."""
-    import copy
-    import threading
-
-    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
-    case = vt_case(torch, size)
-    _, base, x, target, masks = case
+def vt_check(torch, out, name, cpu_case, card, broken):
+    """vitpose_train (b)'s gates on one case: the CPU's f32 step (`cpu_case`: the model,
+    input, target and masks on the host) against the card's step `card`, and the card's
+    steps under the planted faults (`broken`) against it. Fills out[name]."""
     t = time.time()
-    return case, vt_step(torch, copy.deepcopy(base), x, target, masks), time.time() - t
+    cpu = vt_step(torch, *cpu_case)
+    cpu_s = time.time() - t
 
+    def errs(got):
+        loss = abs(got[0] - cpu[0]) / abs(cpu[0])
+        grad = max(hr_rel(a, b) for a, b in zip(got[1], cpu[1]) if b.any())
+        stats = max(hr_rel(got[2][k], cpu[2][k]) for k in cpu[2])
+        return {"loss_rel_err": loss, "grad_max_rel_err": grad, "stats_max_rel_err": stats}
 
-def start_vitpose_train(torch, pool):
-    """(b)'s cases and their CPU steps, submitted to `pool` (the closed loop's
-    low-priority worker): their futures."""
-    return [pool.submit(vt_cpu_reference, torch, size) for size in VT_CHECK]
+    r = out[name] = {**errs(card), "faults": {f: errs(b) for f, b in broken.items()},
+                     "cpu_step_s": cpu_s}
+    log("vitpose_train", step="b", case=name, loss_rel_err=f"{r['loss_rel_err']:.3g}",
+        grad_max_rel_err=f"{r['grad_max_rel_err']:.3g}",
+        stats_max_rel_err=f"{r['stats_max_rel_err']:.3g}",
+        faults=json.dumps({f: {k: float(f"{v:.3g}") for k, v in e.items()}
+                           for f, e in r["faults"].items()}), cpu_step_s=f"{cpu_s:.1f}")
+    if (r["loss_rel_err"] > HR_LOSS_RTOL or r["grad_max_rel_err"] > HR_GRAD_REL
+            or r["stats_max_rel_err"] > HR_STATS_REL):
+        raise AssertionError(f"ViTPose {name}: the card's training step differs from the "
+                             f"CPU's: {r}")
+    for fault in ("no_keep_scaling", "running_stats_in_training"):
+        e = r["faults"][fault]
+        if e["loss_rel_err"] <= HR_LOSS_RTOL and e["grad_max_rel_err"] <= HR_GRAD_REL:
+            raise AssertionError(f"ViTPose {name}: the fault {fault} passes the limits: {e}")
+    if name == VT_UNBIASED_CASE and r["faults"]["unbiased_variance"][
+            "stats_max_rel_err"] <= HR_STATS_REL:
+        raise AssertionError(f"ViTPose {name}: the unbiased variance passes the statistics "
+                             f"limit: {r['faults']['unbiased_variance']}")
 
 
 def vt_faults(torch):
@@ -2687,12 +2764,12 @@ def deterministic_step(torch):
         yield
 
 
-def run_vitpose_train(torch, ops, frames, pipe, pre, profile=False):
+def run_vitpose_train(torch, ops, frames, pipe, later, profile=False):
     """Phase vitpose_train: (a) one warm full-width ViTPose step timed, (b) the card's
-    step against the CPU's with planted faults, (c) the CLI with --torch_init, (d) world
-    size 1 on the card: DDP over NCCL, a one-card mesh for run_rally and
-    generate_dataset. `pre`: what `start_vitpose_train` returned (the futures of (b)'s
-    cases and CPU steps)."""
+    step against the CPU's with planted faults (the CPU's side appended to `later`, which
+    the card_tests phase runs), (c) the CLI with --torch_init, (d) world size 1 on the
+    card: DDP over NCCL, a one-card mesh for run_rally and generate_dataset."""
+    import copy
     import glob
     import io
     import socket
@@ -2764,13 +2841,15 @@ def run_vitpose_train(torch, ops, frames, pipe, pre, profile=False):
     del model, params, opt, ema
     torch.cuda.empty_cache()
 
-    # (b) the card's f32 step against the CPU's, and the planted faults
+    # (b) the card's f32 step and its planted faults here; the CPU's step on the same case
+    # and the limits that hold the two together (`vt_check`) beside the card tests
     faults = vt_faults(torch)
     res["check"] = {}
-    for fut in pre:
-        (name, base, x, target, masks), cpu, cpu_s = fut.result()
+    for size in VT_CHECK:
+        name, base, x, target, masks = vt_case(torch, size)
+        cpu_case = (copy.deepcopy(base), x, target, masks)
         args = (x.to(DEVICE), target.to(DEVICE), masks.to(DEVICE))
-        on_card = base.to(DEVICE)  # the CPU's step ran on its own copy
+        on_card = base.to(DEVICE)
         state = {k: v.clone() for k, v in on_card.state_dict().items()}
 
         def card_step():  # from the case's weights and statistics
@@ -2782,34 +2861,9 @@ def run_vitpose_train(torch, ops, frames, pipe, pre, profile=False):
         for fault, ctx in faults.items():
             with ctx():
                 broken[fault] = card_step()
-
-        def errs(got):
-            loss = abs(got[0] - cpu[0]) / abs(cpu[0])
-            grad = max(hr_rel(a, b) for a, b in zip(got[1], cpu[1]) if b.any())
-            stats = max(hr_rel(got[2][k], cpu[2][k]) for k in cpu[2])
-            return {"loss_rel_err": loss, "grad_max_rel_err": grad, "stats_max_rel_err": stats}
-
-        r = {**errs(card), "faults": {f: errs(b) for f, b in broken.items()},
-             "cpu_step_s": cpu_s}
-        res["check"][name] = r
-        log("vitpose_train", step="b", case=name, loss_rel_err=f"{r['loss_rel_err']:.3g}",
-            grad_max_rel_err=f"{r['grad_max_rel_err']:.3g}",
-            stats_max_rel_err=f"{r['stats_max_rel_err']:.3g}",
-            faults=json.dumps({f: {k: float(f"{v:.3g}") for k, v in e.items()}
-                               for f, e in r["faults"].items()}), cpu_step_s=f"{cpu_s:.1f}")
-        if (r["loss_rel_err"] > HR_LOSS_RTOL or r["grad_max_rel_err"] > HR_GRAD_REL
-                or r["stats_max_rel_err"] > HR_STATS_REL):
-            raise AssertionError(f"ViTPose {name}: the card's training step differs from the "
-                                 f"CPU's: {r}")
-        for fault in ("no_keep_scaling", "running_stats_in_training"):
-            e = r["faults"][fault]
-            if e["loss_rel_err"] <= HR_LOSS_RTOL and e["grad_max_rel_err"] <= HR_GRAD_REL:
-                raise AssertionError(f"ViTPose {name}: the fault {fault} passes the limits: {e}")
-        if name == VT_UNBIASED_CASE and r["faults"]["unbiased_variance"][
-                "stats_max_rel_err"] <= HR_STATS_REL:
-            raise AssertionError(f"ViTPose {name}: the unbiased variance passes the statistics "
-                                 f"limit: {r['faults']['unbiased_variance']}")
-        del card, broken, cpu, on_card, state
+        later.append(functools.partial(vt_check, torch, res["check"], name, cpu_case, card,
+                                       broken))
+        del on_card, state, args
     torch.cuda.empty_cache()
 
     # (c) the CLI with the reference's MAE initialisation, 2 steps on a tiny TTHQ layout
@@ -2987,14 +3041,12 @@ def run_rally_phase(torch, ops, pipe, profile=False):
 
     import numpy as np
 
-    from upliftingtabletennis_torch import hub
-    from upliftingtabletennis_torch.data.image_transforms import (host_downscale, i420_to_rgb,
-                                                                  rgb_to_i420)
+    from upliftingtabletennis_torch.data.image_transforms import host_downscale, i420_to_rgb
     from upliftingtabletennis_torch.pipeline import filters
     from upliftingtabletennis_torch.pipeline.interface import HEIGHT, WIDTH, UpliftingModel
 
-    frames = synthetic_frames(RALLY_FRAMES)
-    inputs = {"rgb": frames, "i420": rgb_to_i420(frames)}
+    inputs, i420_rgb_cpu = rally_inputs(torch)
+    frames = inputs["rgb"]
     chunk = pipe.ball_detector.chunk
     for fmt, x in inputs.items():  # warm-up: cuDNN's algorithms, the allocator, pinned blocks
         for up in ("model", None):
@@ -3068,10 +3120,10 @@ def run_rally_phase(torch, ops, pipe, profile=False):
     T = len(edge)
     slab = pipe._rally_peaks(edge, upload_res=None)
     triples = [(edge[max(t - 1, 0)], edge[t], edge[min(t + 1, T - 1)]) for t in range(T)]
-    refs = [(hub.ball_detection("segformerpp_b2", device=DEVICE, chunk=chunk), triples),
-            (hub.ball_detection("wasb", device=DEVICE, chunk=chunk), triples),
-            (hub.table_detection("segformerpp_b2", device=DEVICE, chunk=chunk), list(edge)),
-            (hub.table_detection("hrnet", device=DEVICE, chunk=chunk), list(edge))]
+    # the pipeline's own detectors (hub.ball_detection / table_detection at the same chunk
+    # build these four with the same seeded weights)
+    refs = [(pipe.ball_detector, triples), (pipe.ball_detector_aux, triples),
+            (pipe.table_detector, list(edge)), (pipe.table_detector_aux, list(edge))]
     slab_px = {}
     for (det, items), got in zip(refs, slab):
         want = det.predict(items)[0]
@@ -3087,7 +3139,7 @@ def run_rally_phase(torch, ops, pipe, profile=False):
     diff_values, diff_max = 0, 0
     for s in range(0, RALLY_FRAMES, chunk):
         x = torch.from_numpy(inputs["i420"][s:s + chunk])
-        d = (i420_to_rgb(x.to(DEVICE), 1080, 1920).cpu().int() - i420_to_rgb(x, 1080, 1920).int())
+        d = (i420_to_rgb(x.to(DEVICE), 1080, 1920).cpu().int() - i420_rgb_cpu[s:s + chunk].int())
         diff_values += int((d != 0).sum())
         diff_max = max(diff_max, int(d.abs().max()))
     if diff_max > 1:
@@ -3148,11 +3200,11 @@ def run_uplifting(torch):
         ms = {}
         for name, mdl in (("card", model), ("cpu", cpu)):
             calls = []
-            for _ in range(20):  # each call returns numpy: it waits for the card
-                t0 = time.perf_counter()
+            for _ in range(UPLIFT_WARM_CALLS + UPLIFT_TIMED_CALLS):  # each returns numpy:
+                t0 = time.perf_counter()                             # it waits for the card
                 mdl.predict_without_normalization(b, t, m, tt)
                 calls.append(1e3 * (time.perf_counter() - t0))
-            ms[name] = statistics.median(calls[3:])
+            ms[name] = statistics.median(calls[UPLIFT_WARM_CALLS:])
         res[f"T{T}"] = {"err": err, "pos3d_shape": list(got[1].shape), "ms": ms["card"],
                         "cpu_ms": ms["cpu"]}
         log("uplifting", T=T, valid=int(m.sum()), err=json.dumps(err),
@@ -3585,11 +3637,12 @@ def fit_track(torch, state, n_obs=FIT_OBS, stride=FIT_STRIDE):
     return (obs.cpu().numpy(), times, r.cpu().numpy(), Mint.cpu().numpy(), Mext.cpu().numpy())
 
 
-def run_physics(torch, ptxas_report=""):
+def run_physics(torch, ptxas_report="", sass=None):
     """S1 against its plain version on the card, at the datagen and the fit shapes, with
     the planted faults; ms per call, cycles per step, the bound and the plain version's
-    time; ptxas' registers and spills and the SASS facts of the step loops, the step
-    anatomy probe and the check of the fast division and square root."""
+    time; ptxas' registers and spills and the SASS facts of the step loops (from `sass`,
+    the library's `s1_sass`, read here when None), the step anatomy probe and the check
+    of the fast division and square root."""
     import numpy as np
 
     from upliftingtabletennis_torch.core import fitting as FIT
@@ -3601,7 +3654,8 @@ def run_physics(torch, ptxas_report=""):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     lib = _build.library("physics.cu")
     res = {"ptxas": s1_ptxas(ptxas_report) if ptxas_report else "not rebuilt in this run",
-           "sass": s1_sass_facts(s1_sass(_build, _build._lib_path("physics.cu")))}
+           "sass": s1_sass_facts(s1_sass(_build, _build._lib_path("physics.cu"))
+                                 if sass is None else sass)}
     for key in ("ptxas", "sass"):
         log("physics", **{key: json.dumps(res[key])})
     lat = s1_op_latency(torch)
@@ -3616,7 +3670,7 @@ def run_physics(torch, ptxas_report=""):
         got = S1.simulate(s0, S1_FRAMES)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        want = P.simulate(s0, S1_FRAMES)
+        want = P.simulate(s0, S1_FRAMES, graph=True)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t)
         errs = s1_errors(torch, got, want)
@@ -3632,7 +3686,7 @@ def run_physics(torch, ptxas_report=""):
         if direction == DG.DIRECTIONS[0]:  # the planted fault: the net left out
             no_net = no_net_table(P, s0.r.dtype, s0.r.device, P.DT)
             with patched(P, _table=lambda *_: no_net):
-                fault = P.simulate(s0, S1_FRAMES)
+                fault = P.simulate(s0, S1_FRAMES, graph=True)
             caught = int(s1_over(torch, s1_errors(torch, got, fault), S1_ATOL).sum())
             entry["fault_no_net_over_limit"] = caught
             if caught <= S1_KNIFE_EDGES["forward"]:
@@ -3664,7 +3718,7 @@ def run_physics(torch, ptxas_report=""):
     r, jac = S1.simulate_tangent(st, *args)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    rp, jp = P.simulate_tangent(st, *args)
+    rp, jp = P.simulate_tangent(st, *args, graph=True)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t)
 
@@ -3714,10 +3768,34 @@ def run_physics(torch, ptxas_report=""):
     return res
 
 
-def run_datagen(torch, profile=False):
+def datagen_cpu_check(res, s0_cpu, card):
+    """datagen's gate on the first batch's candidates: `validate_candidates` on the CPU's
+    plain path (s0_cpu: a BallState of CPU tensors) against the card's result `card`
+    (accept, n_bounces, positions on the host): the accept mask and the bounce counts
+    agree on at least DATAGEN_CPU_AGREEMENT of them. Fills res["cpu_check"]."""
+    from upliftingtabletennis_torch.data import datagen as DG
+
+    t = time.perf_counter()
+    cpu = DG.validate_candidates(s0_cpu, "intermediate", "left_to_right")
+    cpu_s = time.perf_counter() - t
+    acc_agree = float((card["accept"] == cpu["accept"]).float().mean())
+    nb_agree = float((card["n_bounces"] == cpu["n_bounces"]).float().mean())
+    res["cpu_check"] = {"accept_agreement": acc_agree, "n_bounces_agreement": nb_agree,
+                        "accepted_card": int(card["accept"].sum()),
+                        "accepted_cpu": int(cpu["accept"].sum()), "cpu_seconds": cpu_s,
+                        "positions_max_abs_diff": float((card["positions"]
+                                                         - cpu["positions"]).abs().max())}
+    log("datagen", cpu_check=json.dumps(res["cpu_check"]))
+    if min(acc_agree, nb_agree) < DATAGEN_CPU_AGREEMENT:
+        raise AssertionError(f"datagen: the card and the CPU agree on too few candidates: "
+                             f"{res['cpu_check']}")
+
+
+def run_datagen(torch, later, profile=False):
     """generate_dataset("intermediate") at the production batch until DATAGEN_ACCEPTED
     accepted (the main path of datagen, launches counted), twice; then the first batch's
-    candidates again on the CPU's plain path."""
+    candidates again on the card, and on the CPU's plain path (`datagen_cpu_check`,
+    appended to `later`, which the card_tests phase runs)."""
     import numpy as np
 
     from upliftingtabletennis_torch.core.physics import BallState
@@ -3763,32 +3841,21 @@ def run_datagen(torch, profile=False):
     res["track_frames"] = [int(out["frame_valid"][i].sum())
                            for i in range(FIT_DATAGEN_TRACKS)]
 
-    # the first batch's candidates on the card (S1) and on the CPU (the plain version)
+    # the first batch's candidates (the generator's first draws) on the card (S1), and
+    # later on the CPU (the plain version)
     s0 = DG.sample_initial_conditions(DATAGEN_BATCH, "intermediate", "left_to_right",
                                       torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     card = DG.validate_candidates(s0, "intermediate", "left_to_right")
-    t = time.perf_counter()
-    cpu = DG.validate_candidates(BallState(*(x.cpu() for x in s0)), "intermediate",
-                                 "left_to_right")
-    cpu_s = time.perf_counter() - t
-    acc_agree = float((card["accept"].cpu() == cpu["accept"]).float().mean())
-    nb_agree = float((card["n_bounces"].cpu() == cpu["n_bounces"]).float().mean())
-    res["cpu_check"] = {"accept_agreement": acc_agree, "n_bounces_agreement": nb_agree,
-                        "accepted_card": int(card["accept"].sum()),
-                        "accepted_cpu": int(cpu["accept"].sum()), "cpu_seconds": cpu_s,
-                        "positions_max_abs_diff": float((card["positions"].cpu()
-                                                         - cpu["positions"]).abs().max())}
-    log("datagen", cpu_check=json.dumps(res["cpu_check"]))
-    if min(acc_agree, nb_agree) < DATAGEN_CPU_AGREEMENT:
-        raise AssertionError(f"datagen: the card and the CPU agree on too few candidates: "
-                             f"{res['cpu_check']}")
+    later.append(functools.partial(
+        datagen_cpu_check, res, BallState(*(x.cpu() for x in s0)),
+        {k: card[k].cpu() for k in ("accept", "n_bounces", "positions")}))
     return res
 
 
 def run_fit(torch, pipe, datagen_tracks, profile=False):
-    """TableTennisPipeline.fit_physics at its defaults on the two test states (cold and
-    warm) and, over 1 s, on them and FIT_DATAGEN_TRACKS accepted datagen trajectories (once
-    each), and one warm start; launches counted per call."""
+    """TableTennisPipeline.fit_physics at its defaults on the two test states and, over
+    1 s, on them and FIT_DATAGEN_TRACKS accepted datagen trajectories (each once), and one
+    warm start; launches counted per call."""
     import numpy as np
 
     from upliftingtabletennis_torch.core import fitting as FIT
@@ -3815,19 +3882,14 @@ def run_fit(torch, pipe, datagen_tracks, profile=False):
 
     for name, (state, n_obs) in cases.items():
         obs, times, truth, Mint, Mext = fit_track(torch, state, n_obs)
-        seconds = []
-        # the gated cases cold and warm; the reported 1 s cases once (no gate reads a
-        # second call)
-        for _ in (("cold", "warm") if name in FIT_SPIN_CLASS else ("cold",)):
-            (spin, pos, r), s, launches = fit(obs, times, Mint, Mext)
-            seconds.append(s)
+        # once each: no gate reads a second call (the witness fits below are warm calls)
+        (spin, pos, r), seconds, launches = fit(obs, times, Mint, Mext)
         err_cm = 100 * np.linalg.norm(pos - truth, axis=-1)
         cls = float(FIT.spin_class_from_fit(r))
         true_local = G.transform_rotation_axes(torch.tensor(state[2]), torch.from_numpy(truth))
         entry = {"detections": n_obs,
                  "n_frames": int(np.ceil((float(times[-1]) + 1e-3) / 0.25)) * 125 + 2,
-                 "seconds_cold": seconds[0], "seconds_warm": seconds[-1] if len(seconds) > 1
-                 else None,
+                 "seconds": seconds,
                  "mean_err_cm": float(err_cm.mean()), "max_err_cm": float(err_cm.max()),
                  "reproj_px": float(r.reproj_px), "basin_spread_m": float(r.basin_spread_m),
                  "spin_class": cls, "true_spin_class": 1.0 if true_local[1] > 0 else 2.0,
@@ -4272,21 +4334,28 @@ def cl_peak_check(torch, det, items):
                                      "worst_px": float(kb.max())}}
 
 
-def rally_tthq(root, store_d, ti):
+def rally_tthq(root, store_d, ti, pool):
     """A TTHQ layout (video 1, the val/test pool) of the first EV_DET_FRAMES frames of
     held-out rally `ti`, rendered at 1920x1080 on the card, labelled with the simulation's
     truth: the ball in every frame but the first and last, the 13 table keypoints (visible
-    where inside the frame)."""
-    from upliftingtabletennis_torch.data.png import write_png
+    where inside the frame). The files are written on `pool`: its future."""
     from upliftingtabletennis_torch.eval import closed_loop as CL
 
     sample, T, frames = CL.render_held_out(store_d, ti, 0)
     n = min(EV_DET_FRAMES, T)
     ball = sample["ball_eval"][:n].cpu().numpy()
     table = sample["table_eval"].cpu().numpy()
+    return pool.submit(write_tthq, root, frames[:n].cpu().numpy(), ball, table)
+
+
+def write_tthq(root, frames, ball, table):
+    """`rally_tthq`'s files: the frames as PNGs and the two label CSVs."""
+    from upliftingtabletennis_torch.data.png import write_png
+
+    n = len(frames)
     inside = (table[:, 0] >= 0) & (table[:, 0] < 1920) & (table[:, 1] >= 0) & (table[:, 1] < 1080)
     os.makedirs(os.path.join(root, "tthq", "01"))
-    for f, frame in enumerate(frames[:n].cpu().numpy()):
+    for f, frame in enumerate(frames):
         write_png(os.path.join(root, "tthq", "01", f"01_{f:06d}.png"), frame)
     rows = ["video;frame;ball_x;ball_y;ball_flag"]
     table_rows = ["video;frame;" + ";".join(f"point_{k}_x;point_{k}_y;point_{k}_flag"
@@ -4301,19 +4370,35 @@ def rally_tthq(root, store_d, ti):
         fh.write("\n".join(table_rows))
 
 
-def ev_cpu_detections(torch, root):
-    """The committed detectors' f32 detections on the CPU of `rally_tthq`'s test samples
-    (at the lowest priority, as hr_cpu_reference): {task: (preds, gts)}."""
-    import threading
-
+def ev_detection_check(torch, res, det_dir, card):
+    """closed_loop (d)'s gate on run_detection_eval: the committed detectors' f32
+    detections on the CPU of `rally_tthq`'s test samples (in `det_dir`, removed after)
+    against the card's and its bf16 plain copy's (`card`: {task: (preds, gts, bf16 preds,
+    seconds)} on the host) under the peak rule. Fills res["detection"]."""
     from upliftingtabletennis_torch.eval import run_detection_eval as DE
 
-    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
-    out = {}
+    det_res, n_all, charged_all = {}, 0, 0
     for task in ("ball", "table"):
         det, _ = DE.load_detector(task, cl_weights(f"{task}_detector"), device="cpu")
-        out[task] = DE.detections(task, det, root, 4, limit=EV_DET_LIMIT[task])
-    return out
+        f32, f32_gts = DE.detections(task, det, det_dir.name, 4, limit=EV_DET_LIMIT[task])
+        preds, gts, bf16, card_s = card[task]
+        if not torch.allclose(gts, f32_gts, rtol=0, atol=1e-3):  # the same labels, rescaled
+            raise AssertionError(f"evaluate_checkpoint {task}: the card and the CPU read "
+                                 f"other samples")
+        n, charged = peak_rule(preds[..., :2], bf16[..., :2], f32[..., :2],
+                               preds[..., 2] > 0, f32[..., 2] > 0)
+        n_all, charged_all = n_all + n, charged_all + charged
+        det_res[task] = {"card": DE.detection_metrics(task, preds, gts),
+                         "cpu": DE.detection_metrics(task, f32, gts),
+                         "detections": n, "charged_to_kernels": charged,
+                         "worst_px": float((preds[..., :2] - f32[..., :2]).norm(dim=-1).max()),
+                         "card_s": card_s}
+    det_dir.cleanup()
+    det_res["share_free"] = 1 - charged_all / max(n_all, 1)
+    res["detection"] = det_res
+    log("closed_loop", part="eval", detection=json.dumps(det_res))
+    if det_res["share_free"] < CL_PEAK_SHARE:
+        raise AssertionError(f"evaluate_checkpoint, the card against the CPU: {det_res}")
 
 
 def peak_rule(card, plain_bf16, f32, seen_card, seen_f32):
@@ -4328,9 +4413,10 @@ def peak_rule(card, plain_bf16, f32, seen_card, seen_f32):
     return int(both.sum()) + missed, int(((k > CL_PEAK_PX) & (b <= CL_PEAK_PX)).sum()) + missed
 
 
-def run_eval(torch, ops, pipe, store, test_idx, det_root, det_cpu):
-    """closed_loop (d): the evaluation entry points (see EV_RALLIES). det_root: the TTHQ
-    layout of `rally_tthq`; det_cpu: the future of its CPU detections."""
+def run_eval(torch, ops, pipe, store, test_idx, det_dir, later):
+    """closed_loop (d): the evaluation entry points (see EV_RALLIES). det_dir: the
+    TemporaryDirectory of `rally_tthq`'s TTHQ layout, whose CPU detections
+    (`ev_detection_check`) are appended to `later`."""
     import glob
     import math
     import tempfile
@@ -4411,13 +4497,12 @@ def run_eval(torch, ops, pipe, store, test_idx, det_root, det_cpu):
         s_per_rally=json.dumps([round(v, 3) for v in tthq_s]), pieces=pieces,
         launches=json.dumps({k: v for k, v in launches.items() if v}))
 
-    # detection evaluation: the card's detections against the CPU's f32 ones
-    det_res, n_all, charged_all = {}, 0, 0
-    cpu = det_cpu.result()
+    # detection evaluation: the card's detections here, the CPU's f32 ones later
+    card_det = {}
     for task in ("ball", "table"):
         det, _ = DE.load_detector(task, cl_weights(f"{task}_detector"), device=DEVICE)
         t = time.time()
-        card, gts = DE.detections(task, det, det_root, 4, limit=EV_DET_LIMIT[task])
+        card, gts = DE.detections(task, det, det_dir.name, 4, limit=EV_DET_LIMIT[task])
         card_s = time.time() - t
         ref, _ = get_detector(det.model_name, task, kernels=False, resolution=det.resolution)
         ref.load_state_dict(det.model.state_dict())
@@ -4425,25 +4510,10 @@ def run_eval(torch, ops, pipe, store, test_idx, det_root, det_cpu):
         plain = types.SimpleNamespace(
             device=det.device, dtype=torch.bfloat16, resolution=det.resolution,
             _forward=lambda x, m=ref: (lambda o: o[0] if isinstance(o, tuple) else o)(m(x)))
-        bf16, _ = DE.detections(task, plain, det_root, 4, limit=EV_DET_LIMIT[task])
+        bf16, _ = DE.detections(task, plain, det_dir.name, 4, limit=EV_DET_LIMIT[task])
         del ref, plain
-        f32, f32_gts = cpu[task]
-        if not torch.allclose(gts, f32_gts, rtol=0, atol=1e-3):  # the same labels, rescaled
-            raise AssertionError(f"evaluate_checkpoint {task}: the card and the CPU read "
-                                 f"other samples")
-        n, charged = peak_rule(card[..., :2], bf16[..., :2], f32[..., :2],
-                               card[..., 2] > 0, f32[..., 2] > 0)
-        n_all, charged_all = n_all + n, charged_all + charged
-        det_res[task] = {"card": DE.detection_metrics(task, card, gts),
-                         "cpu": DE.detection_metrics(task, f32, gts),
-                         "detections": n, "charged_to_kernels": charged,
-                         "worst_px": float((card[..., :2] - f32[..., :2]).norm(dim=-1).max()),
-                         "card_s": card_s}
-    det_res["share_free"] = 1 - charged_all / max(n_all, 1)
-    if det_res["share_free"] < CL_PEAK_SHARE:
-        raise AssertionError(f"evaluate_checkpoint, the card against the CPU: {det_res}")
-    res["detection"] = det_res
-    log("closed_loop", part="eval", detection=json.dumps(det_res))
+        card_det[task] = (card.cpu(), gts.cpu(), bf16.cpu(), card_s)
+    later.append(functools.partial(ev_detection_check, torch, res, det_dir, card_det))
 
     # the physics-fit evaluation's store protocol at its defaults, one batch
     args = PF._parser().parse_args(["--batch", str(EV_FIT_TRAJ), "--device", DEVICE])
@@ -4544,32 +4614,28 @@ def hr_train_cases(torch, CL, store, train_idx):
     return cases
 
 
-def hr_cpu_reference(torch, CL, base, batch):
-    """The CPU's f32 step from the same weights and batch, without remat (remat changes no
-    value: tests/test_torch_hrnet_train.py), on a worker thread beside the card's work: at
-    the lowest priority (the thread's nice value, which its OpenMP workers inherit), so
-    that the host work the other phases time goes first."""
+def hr_cpu_reference(torch, CL, base, host_batch):
+    """The CPU's f32 step from the same weights and batch (on the host), without remat
+    (remat changes no value: tests/test_torch_hrnet_train.py): (the step, seconds)."""
     import copy
-    import threading
 
-    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
     cpu = copy.deepcopy(base)
     cpu.model.remat = False
-    host_batch = [b.cpu() for b in batch]
     t = time.time()
     return hr_step(torch, CL, cpu, host_batch), time.time() - t
 
 
-def run_hr_train_check(torch, CL, cases, cpu_refs):
-    """(b): one WASB and one table-HRNet training step on the card (remat) against the
-    CPU's (`cpu_refs`: futures of `hr_cpu_reference`), and the planted faults."""
+def run_hr_train_check(torch, CL, cases, later):
+    """(b): one WASB and one table-HRNet training step on the card (remat) and the
+    planted faults here; the CPU's steps (`hr_cpu_reference`) and the limits that hold
+    them together (`hr_train_verdict`) appended to `later`. Returns the dict those fill."""
     import copy
 
     from upliftingtabletennis_torch.models import batch_norm as BN
     from upliftingtabletennis_torch.models import hrnet as HR
 
     res = {}
-    for (name, base, batch), fut in zip(cases, cpu_refs):
+    for name, base, batch in cases:
         t = time.time()
         card = hr_step(torch, CL, copy.deepcopy(base).to(DEVICE), batch)
         card_s = time.time() - t
@@ -4577,34 +4643,41 @@ def run_hr_train_check(torch, CL, cases, cpu_refs):
             twice = hr_step(torch, CL, copy.deepcopy(base).to(DEVICE), batch)
         with patched(HR, batch_norm=unbiased_stats_fault(BN.batch_norm)):
             unbiased = hr_step(torch, CL, copy.deepcopy(base).to(DEVICE), batch)
-        cpu, cpu_s = fut.result()
-        loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
-        names = [n for n, _ in base.named_parameters()]
-        grad_errs = {n: hr_rel(a, b) for n, a, b in zip(names, card[1], cpu[1]) if b.any()}
-        zero_ok = all(not a.any() for a, b in zip(card[1], cpu[1]) if not b.any())
-        stats_err = max(hr_rel(card[2][k], cpu[2][k]) for k in cpu[2])
-        twice_err = max(hr_rel(twice[2][k], cpu[2][k]) for k in cpu[2])
-        unbiased_err = max(hr_rel(unbiased[2][k], cpu[2][k]) for k in cpu[2])
-        worst = max(grad_errs, key=grad_errs.get)
-        res[name] = {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel_err": loss_err,
-                     "grad_max_rel_err": grad_errs[worst], "grad_worst": worst,
-                     "grad_median_rel_err": statistics.median(grad_errs.values()),
-                     "stats_max_rel_err": stats_err, "fault_twice_stats_err": twice_err,
-                     "fault_unbiased_stats_err": unbiased_err, "card_step_s": card_s,
-                     "cpu_step_s": cpu_s}
-        log("closed_loop", what=f"train_step_{name}", loss_rel_err=f"{loss_err:.3g}",
-            grad_max_rel_err=f"{grad_errs[worst]:.3g}", grad_worst=worst,
-            stats_max_rel_err=f"{stats_err:.3g}", fault_twice=f"{twice_err:.3g}",
-            fault_unbiased=f"{unbiased_err:.3g}", cpu_step_s=f"{cpu_s:.1f}")
-        if (loss_err > HR_LOSS_RTOL or grad_errs[worst] > HR_GRAD_REL or not zero_ok
-                or stats_err > HR_STATS_REL):
-            raise AssertionError(f"{name}: the card's training step differs from the CPU's: "
-                                 f"{res[name]}")
-        if twice_err <= HR_STATS_REL:
-            raise AssertionError(f"{name}: the statistics moved twice pass the limit")
-        del card, cpu, twice, unbiased
+        later.append(functools.partial(hr_train_verdict, torch, CL, res, name, base,
+                                       [b.cpu() for b in batch], card, card_s, twice, unbiased))
+        del batch
         torch.cuda.empty_cache()
     return res
+
+
+def hr_train_verdict(torch, CL, res, name, base, host_batch, card, card_s, twice, unbiased):
+    """closed_loop (b)'s gates on one model: the CPU's step against the card's `card`,
+    and the card's steps under the planted faults (`twice`, `unbiased`). Fills res[name]."""
+    cpu, cpu_s = hr_cpu_reference(torch, CL, base, host_batch)
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    names = [n for n, _ in base.named_parameters()]
+    grad_errs = {n: hr_rel(a, b) for n, a, b in zip(names, card[1], cpu[1]) if b.any()}
+    zero_ok = all(not a.any() for a, b in zip(card[1], cpu[1]) if not b.any())
+    stats_err = max(hr_rel(card[2][k], cpu[2][k]) for k in cpu[2])
+    twice_err = max(hr_rel(twice[2][k], cpu[2][k]) for k in cpu[2])
+    unbiased_err = max(hr_rel(unbiased[2][k], cpu[2][k]) for k in cpu[2])
+    worst = max(grad_errs, key=grad_errs.get)
+    res[name] = {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel_err": loss_err,
+                 "grad_max_rel_err": grad_errs[worst], "grad_worst": worst,
+                 "grad_median_rel_err": statistics.median(grad_errs.values()),
+                 "stats_max_rel_err": stats_err, "fault_twice_stats_err": twice_err,
+                 "fault_unbiased_stats_err": unbiased_err, "card_step_s": card_s,
+                 "cpu_step_s": cpu_s}
+    log("closed_loop", what=f"train_step_{name}", loss_rel_err=f"{loss_err:.3g}",
+        grad_max_rel_err=f"{grad_errs[worst]:.3g}", grad_worst=worst,
+        stats_max_rel_err=f"{stats_err:.3g}", fault_twice=f"{twice_err:.3g}",
+        fault_unbiased=f"{unbiased_err:.3g}", cpu_step_s=f"{cpu_s:.1f}")
+    if (loss_err > HR_LOSS_RTOL or grad_errs[worst] > HR_GRAD_REL or not zero_ok
+            or stats_err > HR_STATS_REL):
+        raise AssertionError(f"{name}: the card's training step differs from the CPU's: "
+                             f"{res[name]}")
+    if twice_err <= HR_STATS_REL:
+        raise AssertionError(f"{name}: the statistics moved twice pass the limit")
 
 
 def run_hr_train_timing(torch, CL):
@@ -4655,11 +4728,9 @@ def run_hr_train_timing(torch, CL):
 
 
 def start_closed_loop(torch):
-    """The closed_loop phase's store, (b)'s cases and (d)'s TTHQ layout, with the CPU
-    reference steps (about 50 s of CPU) and the CPU's detections of (d) started on a
-    low-priority worker thread: `main` calls it after the build, so that they run beside
-    the earlier phases. Returns (store, cases, pool, futures, (d)'s layout directory,
-    its future)."""
+    """The closed_loop phase's store, (b)'s cases and (d)'s TTHQ layout, whose files a
+    thread of their own writes: (store, cases, (d)'s layout directory, the writer's
+    future)."""
     import tempfile
 
     from upliftingtabletennis_torch.data import synthetic as SYN
@@ -4669,17 +4740,17 @@ def start_closed_loop(torch):
     store_d = SYN.store_to_device(store, DEVICE)
     cases = hr_train_cases(torch, CL, store_d, SYN.split_indices(len(store), "train"))
     det_dir = tempfile.TemporaryDirectory()
-    rally_tthq(det_dir.name, store_d, SYN.split_indices(len(store), "test")[EV_RALLIES])
-    pool = ThreadPoolExecutor(max_workers=1)
-    futures = [pool.submit(hr_cpu_reference, torch, CL, base, batch) for _, base, batch in cases]
-    return (store, cases, pool, futures, det_dir,
-            pool.submit(ev_cpu_detections, torch, det_dir.name))
+    writer = ThreadPoolExecutor(max_workers=1)
+    written = rally_tthq(det_dir.name, store_d, SYN.split_indices(len(store), "test")[EV_RALLIES],
+                         writer)
+    writer.shutdown(wait=False)
+    return store, cases, det_dir, written
 
 
-def run_closed_loop(torch, ops, pre=None):
+def run_closed_loop(torch, ops, later):
     """Phase closed_loop: (a) scoring with the committed trained weights, (b) the HRNet
-    training step, (c) the CLI. `pre`: what `start_closed_loop` returned, or None to
-    start it here."""
+    training step, (c) the CLI, (d) the evaluation entry points; the CPU references of
+    (b) and (d), and the gates that read them, appended to `later`."""
     import glob
     import math
     import tempfile
@@ -4697,7 +4768,7 @@ def run_closed_loop(torch, ops, pre=None):
 
     res = {}
     t0 = time.time()
-    store, cases, pool, cpu_refs, det_dir, det_cpu = pre or start_closed_loop(torch)
+    store, cases, det_dir, written = start_closed_loop(torch)
     store_d = SYN.store_to_device(store, DEVICE)
     test_idx = SYN.split_indices(len(store), "test")
     pipe = CL._pipeline_from(cl_weights("ball_detector"), cl_weights("table_detector"),
@@ -4706,13 +4777,13 @@ def run_closed_loop(torch, ops, pre=None):
         ball=pipe.ball_detector.model_name, table=pipe.table_detector.model_name,
         res=list(pipe.ball_detector.resolution))
 
-    # (a) the scoring: one rally to warm up, then CL_RALLIES counted
+    # (a) the scoring, CL_RALLIES counted (s_per_rally includes the first call's warm-up:
+    # the rendering and every draw are seeded per rally, so no call needs another first)
     with tempfile.TemporaryDirectory() as d:
-        args = types.SimpleNamespace(n_eval=1, uplifting_checkpoint=cl_weights("uplifting"),
+        args = types.SimpleNamespace(n_eval=CL_RALLIES + 1,  # one shorter than 8 frames
+                                     uplifting_checkpoint=cl_weights("uplifting"),  # is skipped
                                      render_res=(960, 544), skip_physics_fit=True,
                                      physfit_min_rallies=8, out=d)
-        CL.evaluate_pipeline(store, None, args, DEVICE, pipe=pipe)
-        args.n_eval = CL_RALLIES + 1  # a rally shorter than 8 frames is skipped
         for k in ops.ALL:
             getattr(ops, k).launches = 0
         torch.cuda.synchronize()
@@ -4770,8 +4841,8 @@ def run_closed_loop(torch, ops, pre=None):
         near_px=CL_PEAK_NEAR, min_share=CL_PEAK_SHARE, render_ms_per_frame=f"{res['render_ms_per_frame']:.3f}")
     del triplets, singles
     # (d) the evaluation entry points on the same pipeline and store
-    res["eval"] = run_eval(torch, ops, pipe, store, test_idx, det_dir.name, det_cpu)
-    det_dir.cleanup()
+    written.result()
+    res["eval"] = run_eval(torch, ops, pipe, store, test_idx, det_dir, later)
     del pipe
     torch.cuda.empty_cache()
 
@@ -4815,8 +4886,7 @@ def run_closed_loop(torch, ops, pre=None):
                 raise AssertionError(f"run_detection's {model} checkpoint predicts {got}")
         detection_cli_s = time.time() - t
     # (b) the card's training step against the CPU's, whose reference ran meanwhile
-    res["train_step"] = run_hr_train_check(torch, CL, cases, cpu_refs)
-    pool.shutdown()
+    res["train_step"] = run_hr_train_check(torch, CL, cases, later)
     if cli["n_rallies"] != 2:
         raise AssertionError(f"the CLI scored {cli['n_rallies']} rallies")
     res["cli"] = {"seconds": cli_s, "n_rallies": cli["n_rallies"],
@@ -4881,8 +4951,8 @@ def reference_weights_zip(torch, root):
 
 
 def start_item7(pool):
-    """Phase item7's BlurBall tree (1080p PNG files), written on the closed loop's
-    low-priority worker beside the earlier phases. Returns (the directory, the future)."""
+    """Phase item7's BlurBall tree (1080p PNG files), written on `pool` (during the
+    build). Returns (the directory, the future)."""
     import tempfile
 
     d = tempfile.TemporaryDirectory()
@@ -4897,7 +4967,7 @@ def run_item7(torch, ops, pre=None):
     against phase train's, ms per step and per batch load, the checkpoint at
     `pretraining_blurball/segformerpp_b2/model.pt` and `run_detection.warm_start`, what
     `--pretraining` calls, loading every tensor of it into a fresh b2 ball detector (the
-    tree from `start_item7`'s worker, `pre`, or written here); (b) the uplifting trainer's
+    tree `start_item7` wrote, `pre`, or written here); (b) the uplifting trainer's
     step under DDP over NCCL at world size 1 against the plain step, I7_DDP_STEPS steps of
     connectstage large at batch 64 from one seed, the parameters bit-equal under
     deterministic algorithms (ms and launches are those of that mode; the launches counted
@@ -4965,7 +5035,7 @@ def run_item7(torch, ops, pre=None):
     t = time.time()
     trees, written = pre if pre is not None else start_item7(ThreadPoolExecutor(1))
     written.result()
-    write_s = time.time() - t  # waiting for the worker; the writing itself when run alone
+    write_s = time.time() - t  # waiting for the writer; the writing itself when run alone
     with trees:
         d = trees.name
         bb, save = os.path.join(d, "bb"), os.path.join(d, "ckpt")
@@ -5222,6 +5292,78 @@ def run_item7(torch, ops, pre=None):
     return res
 
 
+def pytest_counts(output: str) -> dict:
+    """{"passed", "failed", "errors", "skipped", "seconds"} from the summary line that ends
+    pytest's output ("1 failed, 222 passed, 2 warnings in 51.08s"); raises without one."""
+    import re
+
+    for line in reversed(output.strip().splitlines()):
+        done = re.search(r"\bin ([0-9.]+)s\b", line)
+        found = dict((kind, int(n)) for n, kind in
+                     re.findall(r"(\d+) (passed|failed|errors?|skipped)\b", line))
+        if done and found:
+            counts = {k: found.get(k, 0) for k in ("passed", "failed", "skipped")}
+            counts["errors"] = found.get("error", 0) + found.get("errors", 0)
+            counts["seconds"] = float(done.group(1))
+            return counts
+    raise AssertionError("pytest printed no summary line")
+
+
+def card_tests_verdict(counts: dict, returncode: int, minimum: int = CARD_TESTS_MIN) -> None:
+    """Raises unless the child pytest exited 0 with no failure or error and at least
+    `minimum` cases passed."""
+    if returncode != 0 or counts["failed"] or counts["errors"] or counts["passed"] < minimum:
+        raise AssertionError(f"the card tests: exit code {returncode}, {counts} (at least "
+                             f"{minimum} must pass, none fail)")
+
+
+def run_card_tests(torch, later=()):
+    """Phase card_tests: CARD_TEST_FILES in a child pytest (without tests/conftest.py, which
+    imports JAX) on the kernels the build phase left in `_build/`, after the parent gives
+    back its cached device memory. Meanwhile the parent runs `later`: the earlier phases'
+    CPU references and the gates that read them, which use no card."""
+    import gc
+    import re
+    import tempfile
+
+    from upliftingtabletennis_torch.ops import _build
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    built = sorted(os.listdir(_build.BUILD_DIR))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+           "--durations=8", *CARD_TEST_FILES]
+    t = time.time()
+    with tempfile.TemporaryFile("w+") as out:
+        child = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 stdout=out, stderr=subprocess.STDOUT, text=True)
+        try:
+            for check in later:
+                check()
+            returncode = child.wait(timeout=CARD_TESTS_TIMEOUT_S - (time.time() - t))
+        finally:
+            if child.poll() is None:  # a check failed, or the tests outlasted their limit
+                child.kill()
+                child.wait()
+        seconds = time.time() - t
+        out.seek(0)
+        output = out.read()
+    if returncode != 0:
+        print(output[-12000:], file=sys.stderr, flush=True)
+    counts = pytest_counts(output)
+    slowest = [line.split()[0] + " " + line.split()[-1].split("::")[-1]
+               for line in output.splitlines() if re.match(r"[0-9.]+s (call|setup) ", line)]
+    log("card_tests", passed=counts["passed"], failed=counts["failed"], errors=counts["errors"],
+        skipped=counts["skipped"], minimum=CARD_TESTS_MIN, exit_code=returncode,
+        seconds=f"{seconds:.1f}", pytest_s=counts["seconds"], slowest=json.dumps(slowest))
+    card_tests_verdict(counts, returncode, CARD_TESTS_MIN)
+    if sorted(os.listdir(_build.BUILD_DIR)) != built:
+        raise AssertionError(f"the card tests built kernels of their own: "
+                             f"{sorted(set(os.listdir(_build.BUILD_DIR)) - set(built))}")
+    return {**counts, "exit_code": returncode, "wall_s": seconds, "slowest": slowest}
+
+
 def profile_calls(torch, fn, label, categories=None, calls=1, quiet=False):
     """Device time by kernel over `calls` warm calls of `fn` (torch.profiler), the idle
     share, the kernel launches per call, and the Python lines that make the host wait for
@@ -5387,32 +5529,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. env
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    log("env", device=json.dumps(kind), count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
-    print(smi, flush=True)
+    # 2. build, started first (nvcc needs no card); meanwhile 1. env, and the host work of
+    # later phases that needs no kernel: item7's BlurBall tree, the rally's inputs and the
+    # HRNets' conv shapes (on the meta device)
     global CARD
-    CARD = smi
-
-    # 2. build
     t = time.time()
-    reports = _build.build()
+    with ThreadPoolExecutor(max_workers=3) as prep:
+        built = prep.submit(timed, _build.build)
+        kind = torch.cuda.get_device_name(0)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[0]
+        log("env", device=json.dumps(kind), count=torch.cuda.device_count(),
+            torch=torch.__version__, cuda=torch.version.cuda)
+        print(smi, flush=True)
+        CARD = smi
+        item7_pre = start_item7(prep)
+        rally_made = prep.submit(rally_inputs, torch)
+        _, prep_s = timed(hrnet_conv_shapes, torch)
+        reports, build_s = built.result()
+        rally_made.result()
     for src, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
-    log("build", seconds=f"{time.time() - t:.1f}", compiled=sorted(reports),
-        sass=json.dumps(sass_counts(_build, ("flash_attention.cu", "fused_conv.cu"))))
+    log("build", seconds=f"{build_s:.1f}", wall_s=f"{time.time() - t:.1f}",
+        conv_shapes_s=f"{prep_s:.1f}", compiled=sorted(reports))
 
     Ops = kernel_ops()
-    # the closed_loop phase's CPU reference steps run beside the phases until it
-    closed_pre = start_closed_loop(torch)
-    vt_pre = start_vitpose_train(torch, closed_pre[2])
-    item7_pre = start_item7(closed_pre[2])
+    # the CPU references of later phases and the gates that read them, run beside the
+    # card tests so that no phase times its work beside them
+    later = []
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1_entries = run_k1(torch, F, Ops, gen, profile=opts.profile)
     k2_entries = run_k2(torch, F, Ops, gen, profile=opts.profile)
@@ -5431,30 +5578,38 @@ def main() -> int:
     vit_res = run_vitpose(torch, Ops, frames, profile=opts.profile)
     torch.cuda.empty_cache()
     k4_entries, k4_bwd_entries = run_k4(torch, F, Ops, gen)
+
+    # the SASS readings beside the phases from here on, after the kernel phases
+    sass = ThreadPoolExecutor(max_workers=1)
+    sass_k = sass.submit(sass_counts, _build, ("flash_attention.cu", "fused_conv.cu"))
+    sass_s1 = sass.submit(s1_sass, _build, _build._lib_path("physics.cu"))
+    sass.shutdown(wait=False)
     train_res = run_train(torch, Ops, frames, profile=opts.profile)
 
     torch.cuda.empty_cache()
     from upliftingtabletennis_torch import hub
 
     pipe = hub.full_pipeline(device=DEVICE)
-    vt_res = run_vitpose_train(torch, Ops, frames, pipe, vt_pre, profile=opts.profile)
+    vt_res = run_vitpose_train(torch, Ops, frames, pipe, later, profile=opts.profile)
     torch.cuda.empty_cache()
     rally_res = run_rally_phase(torch, Ops, pipe, profile=opts.profile)
     uplifting_res = run_uplifting(torch)
     calib_res = run_calib(torch, pipe)
-    physics_res = run_physics(torch, reports.get("physics.cu", ""))
-    datagen_res = run_datagen(torch, profile=opts.profile)
+    log("sass", counts=json.dumps(sass_k.result()))
+    physics_res = run_physics(torch, reports.get("physics.cu", ""), sass_s1.result())
+    datagen_res = run_datagen(torch, later, profile=opts.profile)
     fit_res = run_fit(torch, pipe, datagen_res.pop("tracks"), profile=opts.profile)
     del pipe
     torch.cuda.empty_cache()
     uplift_res = run_uplift_train(torch, profile=opts.profile)
 
     torch.cuda.empty_cache()
-    closed_res = run_closed_loop(torch, Ops, closed_pre)
+    closed_res = run_closed_loop(torch, Ops, later)
     torch.cuda.empty_cache()
     item7_res = run_item7(torch, Ops, item7_pre)
+    card_res = run_card_tests(torch, later)
 
-    # 26. hygiene
+    # 27. hygiene
     banned = [m for m in ("jax", "flax", "upliftingtabletennis_tpu") if m in sys.modules]
     if banned:
         raise AssertionError(f"imported {banned}")
@@ -5569,7 +5724,8 @@ def main() -> int:
                        "uplifting": uplifting_res,
                        "calib": calib_res, "physics": physics_res, "datagen": datagen_res,
                        "fit": fit_res, "uplift_train": uplift_res,
-                       "closed_loop": closed_res, "item7": item7_res, "total_s": total}, f,
+                       "closed_loop": closed_res, "item7": item7_res,
+                       "card_tests": card_res, "total_s": total}, f,
                       indent=1)
     print(f"[done] total_s={total:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

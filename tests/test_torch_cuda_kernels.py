@@ -574,9 +574,10 @@ def test_k5_raises_under_grad(gen):
 # |dr| <= 1e-4 m, |dv| <= 1e-3 m/s, |dw| <= 1e-2 rad/s, dr/dq within 1e-3 of the
 # trajectory's largest |dr/dq|; the kernel and the plain version run the same float32
 # operations in the same order, so every output is also bit-equal, as the physics phase
-# gates it at its two shapes. The autograd Function's gradient against
-# autograd through the plain version: 1e-5 relative in norm (reverse mode sums in another
-# order than the tangent's contraction).
+# gates it at its two shapes. The plain version runs as one captured step replayed
+# (`graph=True`), which the eager loop holds bit for bit below. The autograd Function's
+# gradient against autograd through the plain version: 1e-5 relative in norm (reverse
+# mode sums in another order than the tangent's contraction).
 S1_ATOL = (1e-4, 1e-3, 1e-2)
 S1_JAC_RTOL = 1e-3
 
@@ -608,7 +609,7 @@ def test_s1_forward_matches_plain(gen, n, frames, substeps, first_step):
     got = S1.simulate(s0, frames, substeps, first_step=first_step)
     torch.cuda.synchronize()
     assert S1.simulate.launches == before + 1
-    want = P.simulate(s0, frames, substeps, first_step=first_step)
+    want = P.simulate(s0, frames, substeps, first_step=first_step, graph=True)
     over = torch.zeros(n, dtype=torch.bool, device="cuda")
     for g, w, tol in zip(got, want, S1_ATOL):
         assert g.shape == (frames, n, 3)
@@ -627,7 +628,7 @@ def test_s1_tangent_matches_plain(gen, n, frames, substeps, first_step):
     args = (frames, substeps, P.DT, 10.0, 100.0, first_step)
     got_r, got_j = S1.simulate_tangent(s0, *args)
     torch.cuda.synchronize()
-    want_r, want_j = P.simulate_tangent(s0, *args)
+    want_r, want_j = P.simulate_tangent(s0, *args, graph=True)
     assert got_j.shape == (frames, n, 3, 9)
     r_err = (got_r - want_r).abs().amax(dim=(0, 2))
     j_err = (got_j - want_j).abs().amax(dim=(0, 2, 3))
@@ -637,6 +638,26 @@ def test_s1_tangent_matches_plain(gen, n, frames, substeps, first_step):
     # the forward mode's positions are the same arithmetic
     np_r = S1.simulate(s0, frames, substeps, first_step=first_step).r
     assert torch.equal(np_r, got_r)
+
+
+@pytest.mark.parametrize("mode,n,frames,substeps,first_step", [
+    ("forward", 513, 61, 1, True), ("forward", 8192, 40, 2, True), ("forward", 33, 7, 0, False),
+    ("tangent", 33, 61, 1, True), ("tangent", 32, 40, 2, False)])
+def test_s1_plain_graph_replay_matches_the_eager_plain(gen, mode, n, frames, substeps,
+                                                        first_step):
+    from upliftingtabletennis_torch.core import physics as P
+
+    s0 = _s1_states(n)
+    if mode == "forward":
+        def run(graph):
+            return P.simulate(s0, frames, substeps, first_step=first_step, graph=graph)
+    else:
+        def run(graph):
+            return P.simulate_tangent(s0, frames, substeps, P.DT, 10.0, 100.0, first_step,
+                                      graph=graph)
+    eager, replayed = run(False), run(True)
+    for a, b in zip(eager, replayed):
+        assert torch.equal(a, b)
 
 
 def test_s1_backward_matches_autograd_through_plain(gen):

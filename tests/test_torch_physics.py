@@ -201,6 +201,24 @@ def test_tangent_matches_jax_jacfwd():
     np.testing.assert_array_equal(rr.numpy(), _port_sim(r, v, w, 30)[0])
 
 
+@pytest.mark.parametrize("frames,substeps,first_step", [(30, 2, True), (12, 1, False),
+                                                        (5, 0, True), (1, 3, False)])
+def test_static_buffer_loop_matches_the_eager_loop(sampled, frames, substeps, first_step):
+    """`graph=True`: the steps over static buffers (on the card, one captured step
+    replayed) give the eager loop's frames and tangents bit for bit, on the surface states
+    and on sampled float32 candidates (contacts included)."""
+    r, v, w = (torch.from_numpy(a) for a in _states(list(SURFACES), np.float64))
+    for s0 in (P.BallState(r, v, w),
+               P.BallState(*(torch.from_numpy(a.astype(np.float32)) for a in sampled))):
+        for a, b in zip(P.simulate(s0, frames, substeps, first_step=first_step),
+                        P.simulate(s0, frames, substeps, first_step=first_step, graph=True)):
+            assert torch.equal(a, b)
+        args = (frames, substeps, P.DT, 10.0, 100.0, first_step)
+        for a, b in zip(P.simulate_tangent(s0, *args),
+                        P.simulate_tangent(s0, *args, graph=True)):
+            assert torch.equal(a, b)
+
+
 def test_s1_wrappers_take_the_plain_versions_on_the_cpu():
     """On CPU tensors the S1 wrappers are the plain versions and launch nothing; the
     autograd Function's backward (einsum of the cotangent with dr/dq) is the reverse-mode

@@ -391,37 +391,91 @@ def step(state: BallState, dt: float = DT) -> BallState:
     return BallState(*(torch.stack(c, -1) for c in out))
 
 
-def _run(r, v, w, n_frames, substeps, k, first_step, save):
-    """The save loop over 3-tuples of scalars; save(r, v, w) is called per frame."""
+def _leaves(state):
+    """The tensors of a state of 3-tuples of scalars (tensors or Duals), in order."""
+    return [x for vec in state for c in vec
+            for x in ((c.v, c.t) if isinstance(c, Dual) else (c,))]
+
+
+def _static_stepper(state, k):
+    """(the current state, advance) over static buffers: `advance` runs one step that
+    reads the buffers and writes its result back into them. On a CUDA device that step
+    is captured once as a CUDA graph and replayed, so the host issues one launch per step
+    instead of each of its few hundred operations; the graph holds the same kernels on
+    the same values, so every frame is the eager loop's bit for bit. On the CPU the step
+    runs eagerly into the same buffers."""
+    bufs = [x.clone(memory_format=torch.contiguous_format) for x in _leaves(state)]
+    it = iter(bufs)
+    static = tuple(tuple(Dual(next(it), next(it)) if isinstance(c, Dual) else next(it)
+                         for c in vec) for vec in state)
+
+    def step_into():
+        for b, x in zip(bufs, _leaves(_step(*static, k))):
+            b.copy_(x)
+
+    if not bufs[0].is_cuda:
+        return static, step_into
+    side = torch.cuda.Stream()  # warm up off the default stream, as capture asks
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _step(*static, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step_into()
+    return static, graph.replay
+
+
+def _run(r, v, w, n_frames, substeps, k, first_step, save, graph=False):
+    """The save loop over 3-tuples of scalars; save(r, v, w) is called per frame. With
+    `graph`, the steps run over static buffers (`_static_stepper`)."""
+    if graph:
+        static, advance = _static_stepper((r, v, w), k)
+
+        def current():
+            return static
+    else:
+        state = [(r, v, w)]
+
+        def advance():
+            state[0] = _step(*state[0], k)
+
+        def current():
+            return state[0]
     if first_step:
-        r, v, w = _step(r, v, w, k)
+        advance()
     for f in range(n_frames):
         if f:
             for _ in range(substeps):
-                r, v, w = _step(r, v, w, k)
-        save(r, v, w)
+                advance()
+        save(*current())
 
 
 def simulate(state0: BallState, n_frames: int = int(MAX_SIMULATION_TIME * FPS),
              substeps: int = int(round(1.0 / (FPS * DT))), dt: float = DT,
-             first_step: bool = True) -> BallState:
+             first_step: bool = True, graph: bool = False) -> BallState:
     """Simulate and save `n_frames` frames on the FPS grid: frame k is the state after
     1 + k * substeps steps (the reference's one step before its save loop), or after
     k * substeps steps with `first_step=False` (re-simulation from a saved frame).
-    Returns a BallState of (n_frames, ..., 3) tensors; leading batch dims are kept."""
+    Returns a BallState of (n_frames, ..., 3) tensors; leading batch dims are kept.
+    `graph=True` replays one captured step on a CUDA device (`_static_stepper`): the same
+    values, without the host's launches of each operation. It is a timing aid for the
+    plain reference (the smoke script and the card tests set it); no path of the package
+    does."""
     frames = []
     k = _table(state0.r.dtype, state0.r.device, dt)
     _run(*(t.unbind(-1) for t in state0), n_frames, substeps, k, first_step,
-         lambda *s: frames.append(tuple(torch.stack(c, -1) for c in s)))
+         lambda *s: frames.append(tuple(torch.stack(c, -1) for c in s)), graph)
     return BallState(*(torch.stack(f) for f in zip(*frames)))
 
 
 def simulate_tangent(state0: BallState, n_frames: int, substeps: int = 2, dt: float = DT,
-                     v_scale: float = 1.0, w_scale: float = 1.0, first_step: bool = True):
+                     v_scale: float = 1.0, w_scale: float = 1.0, first_step: bool = True,
+                     graph: bool = False):
     """Positions and their tangents by forward-mode dual numbers: r (n_frames, ..., 3) as
     `simulate` gives them, and dr/dq (n_frames, ..., 3, 9) for the 9 parameters
     q = (r0, v0 / v_scale, w0 / w_scale) of the initial state. The plain version of the
-    S1 kernel's tangent mode."""
+    S1 kernel's tangent mode; `graph` as in `simulate`."""
     r0, v0, w0 = state0
     seeds = torch.eye(9, dtype=r0.dtype, device=r0.device)
     seeds[3:6] *= v_scale
@@ -436,7 +490,7 @@ def simulate_tangent(state0: BallState, n_frames: int, substeps: int = 2, dt: fl
         ts.append(torch.stack([c.t for c in r], -1))
 
     _run(comps[0:3], comps[3:6], comps[6:9], n_frames, substeps,
-         _table(r0.dtype, r0.device, dt), first_step, save)
+         _table(r0.dtype, r0.device, dt), first_step, save, graph)
     return torch.stack(rs), torch.stack(ts).movedim(1, -1)
 
 
