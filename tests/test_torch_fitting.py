@@ -195,11 +195,21 @@ def test_fit_trajectory_draws_equal_the_generators():
         assert torch.equal(g, w)
 
 
-def test_fit_witness_holds_jax_tracks_and_draws():
-    """tests/fit_witness_1s.npz (tests/make_fit_witness.py, read by chip_smoke.py's fit
-    phase): its tracks are the JAX package's simulation through the simulation camera
-    (1e-3 px, 1e-6 m), its draws JAX's from each PRNGKey (1e-6 relative), and its JAX
-    fits' spin classes and errors agree with their own positions."""
+def check_witness_track(saved, made):
+    """The witness's (obs, times, truth, Mint, Mext) `saved` against the JAX package's
+    `made` on this host: the observations within 1e-3 px, the truth within 1e-6 m, the
+    times equal, the camera within 1e-6 (absolute and relative: its f32 trigonometry
+    rounds up to 6 ulps apart between hosts, 3.6e-7 on an entry of 0.99 under SSE4.2)."""
+    obs, times, truth, Mint, Mext = made
+    np.testing.assert_allclose(saved["obs"], obs, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(saved["truth"], truth, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(saved["times"], times)
+    for k, v in (("Mint", Mint), ("Mext", Mext)):
+        np.testing.assert_allclose(saved[k], v, rtol=1e-6, atol=1e-6)
+
+
+def witness_maker():
+    """tests/make_fit_witness.py as a module."""
     import importlib.util
     import os
 
@@ -208,13 +218,20 @@ def test_fit_witness_holds_jax_tracks_and_draws():
                                                   os.path.join(here, "make_fit_witness.py"))
     W = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(W)
+    return W
+
+
+def test_fit_witness_holds_jax_tracks_and_draws():
+    """tests/fit_witness_1s.npz (tests/make_fit_witness.py, read by chip_smoke.py's fit
+    phase): its tracks are the JAX package's simulation through the simulation camera
+    (`check_witness_track`), its draws JAX's from each PRNGKey (1e-6 relative), and its JAX
+    fits' spin classes and errors agree with their own positions."""
+    W = witness_maker()
     d = np.load(W.OUT)
     for name in W.STATES:
         obs, times, truth, Mint, Mext = W.track(name)
-        np.testing.assert_allclose(d[f"{name}/obs"], obs, atol=1e-3, rtol=0)
-        np.testing.assert_allclose(d[f"{name}/truth"], truth, atol=1e-6, rtol=0)
-        for k, v in (("times", times), ("Mint", Mint), ("Mext", Mext)):
-            np.testing.assert_array_equal(d[f"{name}/{k}"], v)
+        saved = {k: d[f"{name}/{k}"] for k in ("obs", "times", "truth", "Mint", "Mext")}
+        check_witness_track(saved, (obs, times, truth, Mint, Mext))
         assert W.n_frames_of(times) == 502
         for key in W.KEYS:
             p = f"{name}/key{key}/"

@@ -16,7 +16,13 @@ noise and the drop uniforms):
 Both fits run in float32 (the JAX batch fit casts to it). Tolerance: the 3D errors, the
 residuals and the losses within 1e-3 relative (the same f32 arithmetic through 2 Adam and
 1 LM step; tests/test_torch_fitting.py holds the fit's steps themselves in float64), the
-counts, the coverage and the spin labels exactly.
+counts, the coverage and the spin labels exactly. In the hybrid mode the median basin
+spread (the distance between the winning start's fitted position and a near-tied one's,
+about 6-9 mm against positions of about a metre) is a difference of two f32 fits seeded
+by the uplifting model: the host's rounding moves JAX's own value by 5.4e-4 relative
+(3.5e-6 m of 6.4 mm) between AVX-512 and SSE4.2 and the port's by 5.1e-4 the other way,
+while the fitted positions agree within about 2.5e-5 m (the 3D errors' means). So there it
+is held within SPREAD_ABS_M, twice that, or 1e-3 relative.
 """
 import argparse
 import glob
@@ -37,6 +43,7 @@ from uplift_data import analytic_datagen
 
 torch.set_num_threads(2)
 RTOL = 1e-3
+SPREAD_ABS_M = 5e-5  # the hybrid's basin spread: a difference of two fitted positions
 EXACT = ("n_traj", "n_converged", "coverage", "spin_acc", "spin_macro_f1", "gate_px",
          "max_spread_m", "noise_px", "drop", "spin_acc_converged", "spin_macro_f1_converged")
 KW = dict(n_starts=2, adam_steps=2, lm_steps=1, batch=4, huber_px=None, seed=0, out=None)
@@ -55,16 +62,17 @@ def _starts(kf, B, S):
     return [{k: torch.from_numpy(np.asarray(v)) for k, v in d.items()} for d in out]
 
 
-def _compare(got, want):
+def _compare(got, want, spread_abs=1e-6):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         g = got[k]
         if isinstance(w, dict):
-            _compare(g, w)
+            _compare(g, w, spread_abs)
         elif w is None or k in EXACT:
             assert g == w, k
         else:
-            assert g == pytest.approx(w, rel=RTOL, abs=1e-6), k
+            tol = spread_abs if k == "basin_spread_m_median" else 1e-6
+            assert g == pytest.approx(w, rel=RTOL, abs=tol), k
 
 
 def test_spin_metrics_match_jax():
@@ -95,8 +103,8 @@ def tt3d(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("hybrid", [False, True], ids=["fit", "hybrid"])
-def test_eval_tt3d_fit_matches_jax(tt3d, hybrid):
+def tt3d_case(tt3d, hybrid):
+    """(JAX's eval_tt3d_fit on the layout, the port's args for the same run, JAX's draws)."""
     args = argparse.Namespace(tt3d_dir=tt3d, **KW)
     jargs = argparse.Namespace(tt3d_dir=tt3d, **KW)
     if hybrid:
@@ -110,9 +118,15 @@ def test_eval_tt3d_fit_matches_jax(tt3d, hybrid):
     for _ in range(len(want)):  # one batch per view
         key, kf = jax.random.split(key)
         draws.append({"starts": _starts(kf, 4, 2)})
+    return want, args, draws
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["fit", "hybrid"])
+def test_eval_tt3d_fit_matches_jax(tt3d, hybrid):
+    want, args, draws = tt3d_case(tt3d, hybrid)
     got = PF.eval_tt3d_fit(args, device="cpu", draws=draws)
     assert list(got) == list(want) == ["back", "back_no_noise"]
-    _compare(got, want)
+    _compare(got, want, SPREAD_ABS_M if hybrid else 1e-6)
 
 
 def test_store_protocol_matches_jax(tmp_path):

@@ -18,6 +18,7 @@ from upliftingtabletennis_torch.ops.peak import extract_peaks
 from upliftingtabletennis_torch.ops.resize import resize_bilinear_down
 from upliftingtabletennis_torch.pipeline.interface import BallDetector, TableDetector
 from upliftingtabletennis_torch.utils.convert import flax_to_torch
+from parity_checks import PEAK_PX, check_peaks, ill_conditioned_peaks
 
 torch.set_num_threads(1)
 
@@ -48,6 +49,12 @@ def test_resize_matches_jax_on_uint8(in_hw, out_hw):
     assert np.abs(got - want).max() < 5e-2
     exact = np.asarray(jax_resize(jnp.asarray(x), *out_hw, exact=True))
     assert np.abs(got - exact).max() < 5e-2
+
+
+# the most peaks of test_detectors_match_jax_detectors (3 ball, 39 table) that may be not
+# well conditioned; measured 0, 9-10 and 1 on an AVX-512 host as it is and under the AVX2
+# and SSE4.2 caps of tests/parity_audit.py
+MAX_ILL_CONDITIONED = {"wasb": 1, "hrnet": 14, "segformerpp_b0": 4}
 
 
 def _blob_heatmaps(centres, H=24, W=40, sigma=1.3):
@@ -116,10 +123,13 @@ def test_ball_detector_matches_jax_detector():
 ])
 def test_detectors_match_jax_detectors(kind, name, channels, rel_tol):
     """Same converted weights, same seeded 192x108 frames, model input 96x64; heatmaps in
-    f32 on the same preprocessed input. The port's predict is then held against the JAX
-    peak fit on the JAX heatmaps: within 0.05 px at 1920x1080 (a heatmap pixel is 20 px
-    here), visibility (the table's threshold 0.1) equal. The JAX detector's own predict
-    resizes in bf16 on the CPU, which moves an HRNet peak of random weights by pixels."""
+    f32 on the same preprocessed input. The peaks (at 1920x1080; a heatmap pixel is 20 px
+    here) by tests/parity_checks.py's `check_peaks`: the port's `extract_peaks` on the JAX
+    heatmaps against the JAX fit on them, within 0.05 px on each well-conditioned peak (the
+    JAX fit moves by less under the heatmap tolerance) and no worse a fit on the others;
+    the port's predict within 0.05 px on each well-conditioned peak; visibility (the
+    table's threshold 0.1) equal. The JAX detector's own predict resizes in bf16 on the
+    CPU, which moves an HRNet peak of random weights by pixels."""
     from upliftingtabletennis_tpu.pipeline import interface as jax_interface
 
     jcls = jax_interface.BallDetector if kind == "ball" else jax_interface.TableDetector
@@ -138,16 +148,26 @@ def test_detectors_match_jax_detectors(kind, name, channels, rel_tol):
         images = frames[:3]
     x = jax_normalize(jax_resize(jnp.asarray(images), 64, 96, exact=True))
     out = jax.jit(jdet.model.apply)(jdet._variables, x)
-    want = np.moveaxis(np.asarray(out[0] if isinstance(out, tuple) else out), -1, 1)
+    want = np.moveaxis(np.asarray(out[0] if isinstance(out, tuple) else out), -1, 1).copy()
     got = det.heatmaps(torch.from_numpy(images)).numpy()
-    assert np.abs(got - want).max() <= rel_tol * np.abs(want).max()
+    tol = rel_tol * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol
+
+    def jax_peaks(hm):
+        return np.asarray(jax_extract_peaks(jnp.asarray(hm), 1920, 1080, threshold=det.threshold))
+
+    jpos = jax_peaks(want)
+    ill = ill_conditioned_peaks(jax_peaks, want, tol)
+    assert ill.sum() <= MAX_ILL_CONDITIONED[name], \
+        f"{ill.sum()} of {ill.size} peaks are not well conditioned"
+    check_peaks(extract_peaks(torch.from_numpy(want), 1920, 1080, det.threshold).numpy(), jpos,
+                want, ill, 1920, 1080)
 
     pos, extra = det.predict(items)  # 2 chunks, the second padded
-    jpos = np.asarray(jax_extract_peaks(jnp.asarray(want), 1920, 1080, threshold=det.threshold))
     if kind == "ball":
-        jpos = jpos[:, 0]
+        jpos, ill = jpos[:, 0], ill[:, 0]
     assert extra is None and pos.shape == jpos.shape and np.isfinite(pos).all()
-    np.testing.assert_allclose(pos[..., :2], jpos[..., :2], atol=5e-2, rtol=0)
+    np.testing.assert_allclose(pos[~ill][:, :2], jpos[~ill][:, :2], atol=PEAK_PX, rtol=0)
     np.testing.assert_array_equal(pos[..., 2], jpos[..., 2])
 
 

@@ -12,12 +12,17 @@ f32 with its matmuls pinned to float32 (tests/conftest.py). Tolerances:
 * clip + Adam + EMA over 3 steps fed JAX's own gradients: parameters, EMA and both
   moments within 1e-5 of each tensor's max |value| (only the global norm's summation
   order differs); the port's own 3 training steps give JAX's losses within 1e-4;
-* at full width (size large, the trainer's default, B = 8) the same limits: the loss,
-  each gradient, and 3 training steps' losses. One ReLU unit of the last layers sits on a
-  knife edge for this batch: JAX's f32 rounding flips it (its fc1 gradient lands 3.2e-4
-  of its max from the float64 gradient) where the port's does not (1.4e-7). So a gradient
-  beyond 2e-4 of JAX's passes only where it is within 2e-4 of the float64 gradient of the
-  same weights and batch, JAX's is not, and the tensor is one of that unit's two;
+* at full width (size large, the trainer's default, B = 8) the same limits: the loss, each
+  gradient, and 3 training steps' losses. Seven ReLU units of this batch have a float64
+  pre-activation within 1e-6 of their activation's max of zero (layers 6 and 9 of the
+  first stage, five in its table stage), so the host's f32 rounding turns each on or off
+  in either package: on an AVX-512 host the port's f32 forward turns the unit of layer 6
+  on (its fc1 gradient lands 2e-3 of its max from the float64 one) and JAX's turns the
+  unit of layer 9 on (3.2e-4), and the gradient a unit passes reaches every layer before
+  it by up to 3.4e-4. So tests/parity_checks.py's `check_gradients` holds each gradient
+  within 2e-4 of JAX's once some choice of -1, 0 or +1 times each such unit's float64
+  contribution is taken from the difference (on the tensors that differ by 1e-4 or more,
+  what is left is below 1.2e-6); a tensor that no such unit reaches is held as before;
 * the validation metrics within 1e-4 relative (val2d's flight-frame spin score 1e-3: its
   frame is the difference of two predicted positions), the sign counts equal; the spin metrics
   equal, the ROC-AUC within 1e-12 of scikit-learn's; the save criteria and
@@ -32,6 +37,7 @@ import optax
 import pytest
 import torch
 
+from parity_checks import check_gradients, knife_edges
 from uplift_data import analytic_datagen
 from upliftingtabletennis_tpu.data import augment as JA
 from upliftingtabletennis_tpu.data import synthetic as JSYN
@@ -49,6 +55,7 @@ LOSS_RTOL, GRAD_TOL, OPT_TOL, STEP_LOSS_RTOL, METRIC_RTOL = 1e-5, 2e-4, 1e-5, 1e
 # val2d's spin score is the spin in the flight frame of the PREDICTED positions, whose
 # direction is the difference of the first two: the cancellation gives up about 3 digits
 SPIN_SCORE_RTOL = 1e-3
+MAX_KNIFE_EDGES = 8  # 7 ReLU units of the full-width batch lie within 1e-6 of zero
 B = 8
 LR, DECAY = 1e-3, 0.999
 
@@ -94,6 +101,10 @@ def _as_list(model, tree):
 
 def _torch_batch(batch):
     return UT.Batch(*(torch.tensor(np.asarray(a)) for a in batch))
+
+
+def _double(batch):
+    return UT.Batch(*(t.double() if t.is_floating_point() else t for t in batch))
 
 
 def _rel(got, want):
@@ -188,18 +199,11 @@ def test_full_width_loss_and_gradients_match_jax(setup, full_width):
     loss, _ = UT.loss_fn(model, batch)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert abs(loss.item() - float(loss_j)) <= LOSS_RTOL * abs(float(loss_j))
-    exact = model.double()  # the referee for a knife edge: the same sums in float64
-    loss64, _ = UT.loss_fn(exact, UT.Batch(*(t.double() if t.is_floating_point() else t
-                                             for t in batch)))
-    grads64 = torch.autograd.grad(loss64, list(exact.parameters()))
+    units = knife_edges(model.double(), lambda m: UT.loss_fn(m, _double(batch))[0],
+                        MAX_KNIFE_EDGES)
     names = [n for n, _ in model.named_parameters()]
-    knife = []
-    for n, g, w, e in zip(names, grads, _as_list(model, grads_j), grads64):
-        if _rel(g.numpy(), w.numpy()) > GRAD_TOL:
-            assert _rel(g.double().numpy(), e.numpy()) <= GRAD_TOL, n
-            assert _rel(w.double().numpy(), e.numpy()) > GRAD_TOL, n
-            knife.append(n)
-    assert len({n.rsplit(".", 1)[0] for n in knife}) <= 1 and len(knife) <= 2, knife
+    grads_j = [w.numpy() for w in _as_list(model, grads_j)]
+    check_gradients(names, [g.numpy() for g in grads], grads_j, units, GRAD_TOL)
 
 
 def test_full_width_train_steps_give_the_jax_losses(setup, full_width):

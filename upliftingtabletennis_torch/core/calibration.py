@@ -339,6 +339,17 @@ def _basin_hop_polish(points_3d, points_2d, visibility, resolution, Mint, Mext, 
     return torch.where(enough, best_Mi, Mint), torch.where(enough, best_Me, Mext)
 
 
+def _score_hypotheses(points_3d, points_2d, visibility, Mints, Mexts):
+    """RANSAC's scoring of hypothesis cameras (N, 3, 3) / (N, 4, 4): the inliers (N, 13)
+    (visible keypoints reprojected within INLIER_THRESHOLD px), their counts (N,) and the
+    first hypothesis with the most."""
+    err = torch.linalg.norm(world2img(points_3d.expand(len(Mints), -1, -1), Mexts, Mints)
+                            - points_2d, dim=-1)
+    inliers = (err < INLIER_THRESHOLD) & (visibility > 0)
+    n_in = inliers.sum(1)
+    return inliers, n_in, n_in.argmax()
+
+
 def calibrate_camera(points_2d: torch.Tensor, visibility: torch.Tensor, resolution,
                      use_ransac: bool = False, objective: str = "l1",
                      ransac_u: Optional[torch.Tensor] = None,
@@ -366,11 +377,7 @@ def calibrate_camera(points_2d: torch.Tensor, visibility: torch.Tensor, resoluti
     w = _sample_hypothesis_weights(ransac_u, vis)  # (RANSAC_ITERS, 13)
     Mints, Mexts, _ = refine_camera_multistart(points_3d, points_2d, w, resolution,
                                                (Mint0, Mext0), objective)
-    err = torch.linalg.norm(world2img(points_3d.expand(len(w), -1, -1), Mexts, Mints)
-                            - points_2d, dim=-1)
-    inliers = (err < INLIER_THRESHOLD) & (visibility > 0)
-    n_in = inliers.sum(1)
-    best = n_in.argmax()
+    inliers, n_in, best = _score_hypotheses(points_3d, points_2d, visibility, Mints, Mexts)
     Mint, Mext, _ = refine_camera(points_3d, points_2d, inliers[best].to(dtype), resolution,
                                   (Mints[best], Mexts[best]), objective)
     Mint, Mext = _basin_hop_polish(points_3d, points_2d, visibility, resolution, Mint, Mext,
